@@ -2,6 +2,7 @@
 """Where the time of the port's training step goes, on one card.
 
     python3 scripts/profile_torch_step.py [--grad-accum dense_reduce]
+        [--codec identity] [--error-feedback]
         [--batch-per-worker 8] [--seq-len 256] [--steps 5]
         [--out profile_torch_step.json]
 
@@ -10,8 +11,8 @@ of 1 over NCCL, as ``chip_smoke.py`` drives it), warms up two steps, then:
 
   * phases — each of ``--steps`` steps split with ``synchronize()`` into
     host batch fetch, forward+backward (``grad_contributions``), exchange
-    (accumulate, densify kernel, allreduce, unpack) and AdamW update, on
-    the host clock;
+    (accumulate, densify kernel, encode, collectives, decode, unpack) and
+    AdamW update, on the host clock;
   * kernels — one more step under ``torch.profiler``: device time by
     operator and the device's busy share of that step's wall time.
 
@@ -52,6 +53,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--grad-accum", default="dense_reduce",
                     choices=["dense_reduce", "sparse_gather"])
+    ap.add_argument("--codec", default="identity")
+    ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--batch-per-worker", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--steps", type=int, default=5)
@@ -61,8 +64,11 @@ def main(argv=None) -> int:
         raise SystemExit("profile_torch_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    args = train.parse_args(["--dist", "horovod", "--grad-accum",
-                             a.grad_accum, "--device", "cuda"])
+    args = train.parse_args(
+        ["--dist", "horovod", "--grad-accum", a.grad_accum, "--codec",
+         a.codec, "--batch-per-worker", str(a.batch_per_worker),
+         "--seq-len", str(a.seq_len), "--device", "cuda"]
+        + ["--error-feedback"] * a.error_feedback)
     device = train.resolve_device("cuda")
     cfg = get_config("transformer-big")
     model = build_model(cfg)
@@ -73,6 +79,8 @@ def main(argv=None) -> int:
         feed = Trainer(model, None, pipe, TrainerConfig(), device=device)
         params = model.init(seed=0, device=device)
         state = opt.init(params)
+        ex = [opt.init_exchange_state(
+            train.meta_worker_grads(args, model, pipe, True), device=device)]
 
         def step(k, timed):
             t = [time.perf_counter()]
@@ -86,7 +94,7 @@ def main(argv=None) -> int:
             grads, loss, _ = grad_contributions(model, p[0], batch,
                                                 sparse_embedding=True)
             mark()
-            dense = opt.exchange(grads)
+            dense, ex[0] = opt.exchange(grads, state=ex[0])
             mark()
             updates, s = opt.base.update(dense, st[0], p[0])
             p[0], st[0] = apply_updates(p[0], updates), s
@@ -133,6 +141,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     out = {"card": smi, "grad_accum": a.grad_accum,
+           "codec": opt.exchange_config.codec,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "batch": [a.batch_per_worker, a.seq_len], "steps": rows,
            "median": phases,
            "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,

@@ -3,8 +3,9 @@
 The torch counterpart of ``repro.core.comm``: the paper's Horovod/MPI
 collectives over a process group (NCCL on the card, gloo on the CPU).
 
-  * Horovod allgather of IndexedSlices -> ``all_gather_slices`` (message
-    bytes grow linearly in worker count)
+  * Horovod allgather of IndexedSlices -> ``all_gather_dense`` of its
+    indices and (encoded) values (message bytes grow linearly in worker
+    count)
   * Horovod allreduce of dense tensors -> ``all_reduce_dense`` (constant
     in worker count — the paper's fix)
 
@@ -25,7 +26,6 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.indexed_slices import IndexedSlices
 
 Group = Optional[dist.ProcessGroup]
 
@@ -89,20 +89,6 @@ def all_gather_dense(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 all_reduce_dense.calls = 0
 all_gather_dense.calls = 0
-
-
-# ---------------------------------------------------------------------------
-# Sparse exchange (the pathological path: accumulate by GATHER)
-# ---------------------------------------------------------------------------
-
-def all_gather_slices(s: IndexedSlices, group: Group) -> IndexedSlices:
-    """Allgather of IndexedSlices (Horovod's sparse path): the output row
-    count is ``P * n``."""
-    if group is None:
-        return s
-    return IndexedSlices(indices=all_gather_dense(s.indices, group),
-                         values=all_gather_dense(s.values, group),
-                         dense_shape=s.dense_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -7,13 +7,18 @@ statically compiled ``ExchangePlan`` per gradient-tree structure
     opt = DistributedOptimizer(base, exchange=ExchangeConfig(
         sparse_as_dense=True, use_kernel=True), group=dist.group.WORLD)
 
-``group=None`` is the local path (no collectives, no averaging).
+``group=None`` is the local path (no collectives, no averaging).  The
+codec's ``ExchangeState`` (error-feedback residuals for ``"int8+ef"``,
+empty entries for a stateless codec) is threaded through
+``exchange(grads, state) -> (tree, state)``; ``init_exchange_state``
+builds the first.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.core import comm, exchange
+from repro_torch.core.codecs import ExchangeState
 from repro_torch.core.exchange import ExchangeConfig
 from repro_torch.optim.base import Optimizer
 
@@ -34,18 +39,27 @@ class DistributedOptimizer:
         return self.base.init(params)
 
     def update(self, grads, state, params):
-        return self.base.update(self.exchange(grads), state, params)
+        return self.base.update(self.exchange(grads)[0], state, params)
 
     @property
     def exchange_config(self) -> ExchangeConfig:
         return self._exchange_config
 
+    def init_exchange_state(self, grads, device="cpu") -> ExchangeState:
+        """Initial codec state for this gradient-tree structure: zero
+        residuals on ``device`` (the empty state for stateless codecs).
+        ``grads`` may hold ``meta`` tensors: only the plan is read."""
+        return self.plan(grads).init_state(device=device)
+
     def plan(self, grads) -> exchange.ExchangePlan:
         """The (cached) static schedule for this gradient tree."""
         return exchange.compile_plan(grads, self._exchange_config)
 
-    def exchange(self, grads):
-        """Accumulate, exchange across the group, densify: the dense
-        gradient tree every worker applies."""
+    def exchange(self, grads, state: Optional[ExchangeState] = None):
+        """Accumulate, exchange across the group, densify: returns
+        ``(the dense gradient tree every worker applies, new
+        ExchangeState)``.  ``state`` may be left out for a stateless
+        codec."""
         return self.plan(grads).execute_fused(grads, self.group,
-                                              average=self.average)
+                                              average=self.average,
+                                              state=state)

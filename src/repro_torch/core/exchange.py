@@ -2,23 +2,29 @@
 and cross-worker gradient exchange.
 
 The torch counterpart of ``repro.core.exchange``, for the configuration
-space this port carries: the identity wire codec and flat collectives
-over one process group.  Per gradient-tree structure it compiles, once:
+space this port carries: the wire codecs of ``repro_torch.core.codecs``
+(identity, bf16/f16 casts, int8, each with optional error feedback) and
+flat collectives over one process group.  Per gradient-tree structure
+it compiles, once:
 
   1. **classify** every leaf's contribution list through the configured
      accumulation rule (paper Alg. 1 / Alg. 2 / the ``sparse_as_dense``
      Listing-1 pre-pass) to its post-accumulation representation;
   2. **bucket** dense leaves into Horovod-style fusion buffers
-     (first-fit-decreasing) and give each sparse IndexedSlices leaf its
-     own gather stage;
+     (first-fit-decreasing, one group per codec wire dtype) and give each
+     sparse IndexedSlices leaf its own gather stage;
   3. a **BucketSchedule**: one stage per bucket, sorted reverse-layer
      (descending readiness key).
 
 ``execute_fused`` runs the stages serially: accumulate, pack (the
 densification of deferred-sparse leaves happens here, through the
-densify kernel when ``use_kernel`` is set), one allreduce or allgather,
-unpack.  The plan is the single source of the byte accounting
-(``wire_bytes`` / ``buffer_bytes`` / ``n_collectives``), which equals the
+densify kernel when ``use_kernel`` is set), encode, the stage's
+collectives, decode, unpack.  Linear codecs allreduce the wire;
+non-linear ones (int8) allgather (values, scales) and sum after decode.
+Every codec threads an ``ExchangeState`` through ``execute_fused`` (empty
+entries for stateless codecs).
+The plan is the single source of the byte accounting (``wire_bytes`` /
+``buffer_bytes`` / ``n_collectives`` / ``state_bytes``), which equals the
 reference plan's for the same tree exactly.
 """
 from __future__ import annotations
@@ -29,7 +35,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core import accumulation, comm, fusion
+from repro_torch.core import accumulation, codecs, comm, fusion
+from repro_torch.core.codecs import ExchangeState
 from repro_torch.core.indexed_slices import IndexedSlices, concat_slices
 from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -38,17 +45,34 @@ ALLREDUCE = "allreduce"
 
 @dataclasses.dataclass(frozen=True)
 class ExchangeConfig:
-    """Everything the planner needs to know, all static.  The wire codec
-    is the identity and collectives are flat over one process group."""
+    """Everything the planner needs to know, all static.  Collectives
+    are flat over one process group.  ``codec`` names an entry of the
+    ``repro_torch.core.codecs`` registry; ``error_feedback`` is
+    normalised onto it in ``__post_init__``, so equivalent configs
+    compare, hash and cache identically."""
     algorithm: str = "tf_algorithm1"         # paper Alg. 1 (TF upstream)
     sparse_as_dense: bool = False            # Horovod Listing-1 pre-pass
     fusion_threshold: Optional[int] = None   # bytes; None = bucket/leaf
-    use_kernel: bool = False                 # densify through the kernel
+    use_kernel: bool = False                 # densify kernel
+    codec: str = "identity"                  # WireCodec registry name
+    error_feedback: bool = False             # -> codec="<codec>+ef"
 
     def __post_init__(self):
         if self.algorithm not in ("tf_algorithm1", "proposed_algorithm2"):
             raise ValueError(
                 f"unknown accumulation algorithm: {self.algorithm}")
+        if self.error_feedback:
+            name = codecs.get_codec(self.codec).name
+            if not name.endswith(codecs.EF_SUFFIX):
+                name += codecs.EF_SUFFIX
+            object.__setattr__(self, "codec", name)
+            object.__setattr__(self, "error_feedback", False)
+        # resolve + normalise the registry name (raises on unknown ones)
+        object.__setattr__(self, "codec", codecs.get_codec(self.codec).name)
+
+    @property
+    def codec_obj(self) -> codecs.WireCodec:
+        return codecs.get_codec(self.codec)
 
 
 # ---------------------------------------------------------------------------
@@ -245,24 +269,40 @@ class ExchangePlan:
 
     @property
     def n_collectives(self) -> int:
-        """Logical collective launches (P-independent): one allreduce per
-        dense stage, one allgather per gather stage."""
-        return self.schedule.n_stages
+        """Logical collective launches (P-independent): the sum of the
+        per-stage counts."""
+        return sum(self.stage_collectives(s) for s in self.schedule.stages)
+
+    def stage_collectives(self, stage: BucketStage) -> int:
+        """Logical collectives one stage launches: one allreduce per
+        dense stage and one allgather per gather stage for linear
+        codecs; a values and a scales allgather per stage for non-linear
+        ones (the gather stage's indices are billed with its values, as
+        the reference does)."""
+        return 1 if self.config.codec_obj.linear else 2
 
     def stage_wire_bytes(self, stage: BucketStage, n_workers: int) -> int:
-        """Bytes one stage moves per worker."""
+        """Bytes one stage moves per worker (the reference's flat-backend
+        formulas): a ring allreduce of the wire for linear codecs, an
+        allgather of the encoded payload otherwise."""
         if n_workers <= 1:
             return 0
+        codec = self.config.codec_obj
         if stage.kind == "dense":
             b = self.dense_buckets[stage.bucket_id]
+            if not codec.linear:
+                return (n_workers - 1) * codec.wire_bytes(b.n_elems,
+                                                          b.wire_dtype)
             return comm.allreduce_wire_bytes((b.n_elems,), b.wire_dtype,
                                              n_workers)
         return (n_workers - 1) * self._gather_payload_bytes(
             self.leaf_specs[stage.bucket_id])
 
     def _gather_payload_bytes(self, spec: SparseSpec) -> int:
-        """Per-worker IndexedSlices payload (values + indices)."""
-        return (spec.rows * spec.row_elems * comm.dtype_bytes(spec.dtype)
+        """Per-worker encoded IndexedSlices payload (values in the wire
+        dtype + native-width indices + codec side scales)."""
+        codec = self.config.codec_obj
+        return (codec.wire_bytes(spec.rows * spec.row_elems, spec.dtype)
                 + spec.rows * comm.dtype_bytes(spec.index_dtype))
 
     def wire_bytes(self, n_workers: int) -> int:
@@ -273,13 +313,16 @@ class ExchangePlan:
     def buffer_bytes(self, n_workers: int) -> int:
         """Size of the accumulated representation each worker holds after
         exchange (paper Fig. 3 / Fig. 5): gather buffers grow linearly in
-        P, dense buffers are constant."""
+        P (wire-dtype values, native indices and one scale per worker for
+        sided codecs), dense buffers are constant."""
+        codec = self.config.codec_obj
         total = self.dense_bytes
         for i in self.gather_leaf_ids:
             s = self.leaf_specs[i]
             total += comm.gathered_buffer_bytes(
-                s.rows, s.row_elems, s.dtype, n_workers,
+                s.rows, s.row_elems, codec.wire_dtype(s.dtype), n_workers,
                 index_dtype=s.index_dtype)
+            total += n_workers * codec.scale_bytes
         return total
 
     @property
@@ -289,17 +332,68 @@ class ExchangePlan:
                                            self.leaf_specs[i].dtype)
                    for i in self.dense_leaf_ids)
 
+    # -- codec state ---------------------------------------------------------
+    def init_state(self, device="cpu") -> ExchangeState:
+        """Initial codec state on ``device``: one entry per schedule
+        stage (``()`` for zero-state codecs), sized for this worker."""
+        return self.config.codec_obj.init_state(self, device=device)
+
+    def stage_n_elems(self, stage: BucketStage) -> int:
+        """Per-worker element count of one stage's payload — the size
+        codec state and its byte accounting are both keyed on."""
+        if stage.kind == "dense":
+            return self.dense_buckets[stage.bucket_id].n_elems
+        spec = self.leaf_specs[stage.bucket_id]
+        return spec.rows * spec.row_elems
+
+    def state_bytes_per_stage(self) -> Tuple[int, ...]:
+        """Per-worker codec-state memory, stage by stage."""
+        codec = self.config.codec_obj
+        return tuple(codec.state_bytes(self.stage_n_elems(s), kind=s.kind)
+                     for s in self.schedule.stages)
+
+    def state_bytes(self) -> int:
+        """Total per-worker codec-state memory (0 for stateless)."""
+        return sum(self.state_bytes_per_stage())
+
+    def _check_state(self, state) -> ExchangeState:
+        """``state``, or the empty state of a stateless codec for
+        ``None``."""
+        codec = self.config.codec_obj
+        if state is None:
+            if codec.stateful:
+                raise ValueError(
+                    f"codec {codec.name!r} is stateful: pass "
+                    f"state=plan.init_state() and thread the returned "
+                    f"state into the next step")
+            return self.init_state()
+        if not isinstance(state, ExchangeState):
+            raise TypeError(f"state must be an ExchangeState, got "
+                            f"{type(state).__name__}")
+        if state.n_stages != self.schedule.n_stages:
+            raise ValueError(
+                f"ExchangeState has {state.n_stages} stage entries but "
+                f"the plan schedules {self.schedule.n_stages} — state "
+                f"from a different plan?")
+        return state
+
     # -- execution -----------------------------------------------------------
     def pack_bucket(self, bucket: DenseBucket, leaves: List[Any]
                     ) -> torch.Tensor:
-        """Fuse a bucket into one 1-D buffer in its wire dtype; deferred
-        sparse slots are densified here."""
-        wire = comm.torch_dtype(bucket.wire_dtype)
+        """Fuse a bucket into one 1-D buffer; deferred sparse slots are
+        densified here.  Stateless linear codecs pack straight into the
+        wire dtype; non-linear and stateful codecs pack f32 and encode
+        afterwards (the absmax scale needs the full-precision buffer, and
+        the residual is added before narrowing)."""
+        codec = self.config.codec_obj
+        pack = comm.torch_dtype(bucket.wire_dtype
+                                if codec.linear and not codec.stateful
+                                else "float32")
         parts = []
         for slot in bucket.slots:
             leaf_id = self.dense_leaf_ids[slot.leaf_idx]
             x = _materialise(leaves[leaf_id], self.config)
-            parts.append(x.reshape(-1).to(wire))
+            parts.append(x.reshape(-1).to(pack))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def unpack_bucket(self, bucket: DenseBucket, buf: torch.Tensor,
@@ -314,33 +408,98 @@ class ExchangePlan:
                 x = x * inv_scale
             out[leaf_id] = x
 
-    def launch_stage(self, stage: BucketStage, leaves: List[Any],
-                     group: comm.Group) -> Tuple:
-        """Pack + issue one stage's collective(s)."""
-        if stage.kind == "dense":
-            buf = self.pack_bucket(self.dense_buckets[stage.bucket_id],
-                                   leaves)
-            return (comm.all_reduce_dense(buf, group, average=False),)
-        g = comm.all_gather_slices(leaves[stage.bucket_id], group)
-        return (g.indices, g.values)
+    def _launch_dense(self, stage: BucketStage, leaves: List[Any],
+                      group: comm.Group, bstate) -> Tuple[Tuple, Any]:
+        """Pack one dense bucket, encode it and issue its collective(s).
+        Linear codecs return the reduced wire (decode is the unpack
+        upcast); non-linear codecs return the gathered (wire, scales)
+        pair, decoded and summed at finish (or, on the local path, their
+        own decode).  Returns (inflight, new bucket state)."""
+        codec = self.config.codec_obj
+        buf = self.pack_bucket(self.dense_buckets[stage.bucket_id], leaves)
+        # stateless linear codecs packed straight into the wire dtype, so
+        # their encode returns the packed buffer itself
+        wire, scale, bstate = codec.encode_stateful(buf, bstate)
+        if codec.linear:
+            if group is None:
+                return (wire,), bstate
+            return (comm.all_reduce_dense(wire, group, average=False),), \
+                bstate
+        # quantised: every worker has its own scale, so the wire cannot
+        # be reduced in flight — allgather (values, scales)
+        if group is None:
+            return (codec.decode(wire, scale, torch.float32),), bstate
+        return (comm.all_gather_dense(wire, group),
+                comm.all_gather_dense(scale, group)), bstate
 
-    def finish_stage(self, stage: BucketStage, inflight: Tuple,
-                     out: List[Any], inv_scale: Optional[float]) -> None:
-        """Unpack one launched stage into ``out`` (densify gathers,
-        restore dtypes, apply averaging)."""
-        if stage.kind == "dense":
-            self.unpack_bucket(self.dense_buckets[stage.bucket_id],
-                               inflight[0], out, inv_scale)
-            return
+    def _finish_dense(self, stage: BucketStage, inflight: Tuple,
+                      out: List[Any], inv_scale: Optional[float],
+                      p: int) -> None:
+        """Decode-sum (gathered non-linear payloads) + unpack."""
+        buf = inflight[0]
+        if len(inflight) == 2:
+            buf = codecs.sum_decoded(self.config.codec_obj, inflight[0],
+                                     inflight[1], p, torch.float32)
+        self.unpack_bucket(self.dense_buckets[stage.bucket_id], buf, out,
+                           inv_scale)
+
+    def _launch_gather(self, stage: BucketStage, leaves: List[Any],
+                       group: comm.Group) -> Tuple:
+        """Encode the accumulated IndexedSlices leaf's values and
+        allgather (indices, wire[, scales]).  Only the wire is narrow:
+        decode happens at finish, before the scatter-add."""
+        s = leaves[stage.bucket_id]
+        wire, scale = self.config.codec_obj.encode(s.values)
+        rows = s.values.shape[0]
+        if group is None:
+            return (s.indices, wire, scale, rows)
+        g_scales = (comm.all_gather_dense(scale, group)
+                    if scale is not None else None)
+        return (comm.all_gather_dense(s.indices, group),
+                comm.all_gather_dense(wire, group), g_scales, rows)
+
+    def _finish_gather(self, stage: BucketStage, inflight: Tuple,
+                       out: List[Any], inv_scale: Optional[float],
+                       p: int) -> None:
+        """Decode (each worker's chunk against its own scale), densify,
+        restore the leaf dtype, apply averaging."""
         spec = self.leaf_specs[stage.bucket_id]
+        codec = self.config.codec_obj
         dtype = comm.torch_dtype(spec.dtype)
-        g_idx, g_vals = inflight
-        g = IndexedSlices(g_idx, g_vals.to(dtype), spec.dense_shape)
+        g_idx, g_wire, g_scales, rows = inflight
+        if g_scales is None:
+            g_vals = codec.decode(g_wire, None, dtype)
+        else:
+            per = g_wire.to(torch.float32).reshape(
+                (p, rows) + tuple(g_wire.shape[1:]))
+            per = per * g_scales.to(torch.float32).reshape(
+                (p,) + (1,) * (per.dim() - 1))
+            g_vals = per.reshape(g_wire.shape).to(dtype)
+        g = IndexedSlices(g_idx, g_vals, spec.dense_shape)
         x = accumulation.densify(g, use_kernel=self.config.use_kernel)
         x = x.to(dtype)
         if inv_scale is not None:
             x = x * inv_scale
         out[stage.bucket_id] = x
+
+    def launch_stage(self, stage: BucketStage, leaves: List[Any],
+                     group: comm.Group, bstate: Any = ()
+                     ) -> Tuple[Tuple, Any]:
+        """Pack + issue one stage's collective(s); returns ``(inflight,
+        new bucket state)``."""
+        if stage.kind == "dense":
+            return self._launch_dense(stage, leaves, group, bstate)
+        return self._launch_gather(stage, leaves, group), bstate
+
+    def finish_stage(self, stage: BucketStage, inflight: Tuple,
+                     out: List[Any], inv_scale: Optional[float],
+                     p: int) -> None:
+        """Unpack one launched stage into ``out`` (decode, densify
+        gathers, restore dtypes, apply averaging)."""
+        if stage.kind == "dense":
+            self._finish_dense(stage, inflight, out, inv_scale, p)
+        else:
+            self._finish_gather(stage, inflight, out, inv_scale, p)
 
     def _flatten_checked(self, grads) -> List[Any]:
         leaves, treedef = tree_flatten(grads)
@@ -350,22 +509,30 @@ class ExchangePlan:
         return leaves
 
     def execute_fused(self, grads, group: comm.Group,
-                      average: bool = True):
+                      average: bool = True,
+                      state: Optional[ExchangeState] = None
+                      ) -> Tuple[Any, ExchangeState]:
         """Serial path: each stage is accumulated, launched and finished
         before the next starts.  ``group=None`` is the local path (every
-        collective a no-op, no averaging)."""
+        collective a no-op, no averaging; the codec round trip still
+        runs).  Returns ``(tree, new ExchangeState)``; ``state`` may be
+        left out for a stateless codec.  Error-feedback residuals are
+        updated in place."""
+        state = self._check_state(state)
         raw = self._flatten_checked(grads)
         p = comm.axis_size(group)
         inv_scale = (1.0 / p) if average and group is not None else None
         acc: List[Any] = [None] * self.n_leaves
         out: List[Any] = [None] * self.n_leaves
-        for stage in self.schedule.stages:
+        new_states: List[Any] = []
+        for stage, bstate in zip(self.schedule.stages, state.bucket_states):
             for i in stage.leaf_ids:
                 acc[i] = _accumulate_leaf(raw[i], self.leaf_specs[i],
                                           self.config)
-            inflight = self.launch_stage(stage, acc, group)
-            self.finish_stage(stage, inflight, out, inv_scale)
-        return tree_unflatten(self.treedef, out)
+            inflight, bstate = self.launch_stage(stage, acc, group, bstate)
+            new_states.append(bstate)
+            self.finish_stage(stage, inflight, out, inv_scale, p)
+        return tree_unflatten(self.treedef, out), ExchangeState(new_states)
 
 
 # ---------------------------------------------------------------------------
@@ -391,11 +558,15 @@ def _build_plan(treedef, contrib_specs: Tuple[Tuple[LeafSpec, ...], ...],
     gather_ids = tuple(i for i, s in enumerate(leaf_specs)
                        if isinstance(s, SparseSpec))
 
-    # bucket dense leaves with the fusion planner, one group per wire
-    # dtype, so packed buffers never promote and byte accounting is exact
+    # bucket dense leaves with the fusion planner, one group per codec
+    # wire dtype, so packed buffers never promote and byte accounting is
+    # exact; thresholds are in wire bytes (an int8 wire packs four times
+    # the f32 elements per bucket)
+    codec = config.codec_obj
     groups: Dict[str, List[int]] = {}
     for i in dense_ids:
-        groups.setdefault(leaf_specs[i].dtype, []).append(i)
+        groups.setdefault(codec.wire_dtype(leaf_specs[i].dtype),
+                          []).append(i)
     threshold = (config.fusion_threshold
                  if config.fusion_threshold is not None else 0)
     dense_ids = tuple(i for ids in groups.values() for i in ids)

@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.densify import densify_kernel, densify_plain
+from repro_torch.kernels.quantize import quantize_kernel, quantize_plain
 
 
 def densify(indices: torch.Tensor, values: torch.Tensor,
@@ -28,3 +29,14 @@ def densify(indices: torch.Tensor, values: torch.Tensor,
     if indices.device.type == "cpu":
         return densify_plain(indices, values, dense_shape)
     raise ValueError(f"densify: unsupported device {indices.device}")
+
+
+def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantise a flat f32/bf16 buffer to ``(int8 values (n,), f32
+    absmax scale (1,))``; dequantise with ``q.float() * scale``."""
+    flat = flat.reshape(-1)
+    if flat.device.type == "cuda":
+        return quantize_kernel(flat.contiguous())
+    if flat.device.type == "cpu":
+        return quantize_plain(flat)
+    raise ValueError(f"quantize_int8: unsupported device {flat.device}")

@@ -11,13 +11,16 @@ Strategy flags map 1:1 to the paper:
   --grad-accum sparse_gather   TF Algorithm 1 (gather; the pathology)
   --grad-accum dense_reduce    sparse_as_dense=True (the paper's fix)
 
-The densify kernel is always on the exchange path
-(``ExchangeConfig(use_kernel=True)``).  Runs on the card unless
-``--device cpu`` is given.
+The gradient wire is ``--codec {identity,bf16,f16,int8}``;
+``--error-feedback`` makes it ``<codec>+ef`` (a per-bucket f32 residual
+threaded from step to step).  The densify and quantize kernels are always
+on the exchange path (``ExchangeConfig(use_kernel=True)``).  Runs on the
+card unless ``--device cpu`` is given.
 
 Example (4 cards):
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-    --arch transformer-big --dist horovod --grad-accum dense_reduce
+    --arch transformer-big --dist horovod --grad-accum dense_reduce \
+    --codec int8 --error-feedback
 """
 from __future__ import annotations
 
@@ -31,11 +34,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
-from repro_torch.core import DistributedOptimizer, ExchangeConfig
+from repro_torch.core import (DistributedOptimizer, ExchangeConfig,
+                              available_codecs)
 from repro_torch.data import make_pipeline
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, noam_schedule
-from repro_torch.training import Trainer, TrainerConfig, make_train_step
+from repro_torch.training import (Trainer, TrainerConfig,
+                                  grad_contributions, make_train_step)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -49,6 +54,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--algorithm", default="tf_algorithm1",
                     choices=["tf_algorithm1", "proposed_algorithm2"])
     ap.add_argument("--fusion-threshold", type=int, default=None)
+    ap.add_argument("--codec", default="identity",
+                    help="WireCodec registry name for the gradient wire "
+                         f"(registered: {', '.join(available_codecs())}; "
+                         "append '+ef' to any name, or pass "
+                         "--error-feedback, for error feedback)")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="wrap the codec in ErrorFeedbackCodec: keep a "
+                         "per-bucket f32 residual of the wire's "
+                         "quantisation error and fold it into the next "
+                         "step's encode")
     ap.add_argument("--batch-per-worker", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=50)
@@ -106,8 +121,23 @@ def build_optimizer(args, cfg, group) -> DistributedOptimizer:
         sparse_as_dense=args.grad_accum == "dense_reduce",
         algorithm=args.algorithm,
         fusion_threshold=args.fusion_threshold,
+        codec=args.codec, error_feedback=args.error_feedback,
         use_kernel=True)
     return DistributedOptimizer(base, exchange=exchange, group=group)
+
+
+def meta_worker_grads(args, model, pipe, sparse_embedding: bool):
+    """One worker's gradient-contribution tree on ``meta`` tensors (no
+    memory, no compute): the structure the ExchangePlan and its
+    ExchangeState are keyed on."""
+    meta = torch.device("meta")
+    batch = {k: torch.empty((args.batch_per_worker,) + v.shape[1:],
+                            dtype=torch.from_numpy(v[:0]).dtype,
+                            device=meta)
+             for k, v in pipe.batch_at(0).items()}
+    grads, _, _ = grad_contributions(model, model.init(device=meta), batch,
+                                     sparse_embedding=sparse_embedding)
+    return grads
 
 
 def run(argv=None, log: Optional[Callable[[str], None]] = None
@@ -141,10 +171,13 @@ def run(argv=None, log: Optional[Callable[[str], None]] = None
         pipe = make_pipeline(cfg, batch_per_host=args.batch_per_worker * world,
                              seq_len=args.seq_len, seed=args.seed,
                              task=args.task)
+        ex_state = opt.init_exchange_state(
+            meta_worker_grads(args, model, pipe, sparse_embedding),
+            device=device)
         trainer = Trainer(model, step, pipe, TrainerConfig(
             total_steps=args.steps, log_every=args.log_every),
             device=device, rank=rank, world=world)
-        result = trainer.run(params, opt.init(params), log=log)
+        result = trainer.run(params, opt.init(params), ex_state, log=log)
     finally:
         if created:
             dist.destroy_process_group()

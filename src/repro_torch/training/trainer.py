@@ -19,7 +19,8 @@ class TrainerConfig:
 @dataclasses.dataclass
 class Trainer:
     model: Any
-    step_fn: Callable                   # (params, opt_state, batch) -> ...
+    step_fn: Callable                   # (params, opt_state, ex_state,
+    #                                     batch) -> ...
     pipeline: Any                       # global batches: .batch_at(step)
     config: TrainerConfig
     device: Any = "cpu"
@@ -37,8 +38,11 @@ class Trainer:
             out[k] = torch.from_numpy(part).to(self.device)
         return out
 
-    def run(self, params, opt_state,
+    def run(self, params, opt_state, exchange_state,
             log: Callable[[str], None] = print) -> Dict[str, Any]:
+        """Run the loop.  ``exchange_state`` (an ``ExchangeState`` from
+        ``opt.init_exchange_state``) is threaded from step to step and
+        returned."""
         cfg = self.config
         history: List[Dict[str, float]] = []
         tokens_seen = 0
@@ -49,8 +53,8 @@ class Trainer:
             t_fetch = time.perf_counter()
             batch = self.batch_at(step)
             window_data_ms += (time.perf_counter() - t_fetch) * 1e3
-            params, opt_state, metrics = self.step_fn(params, opt_state,
-                                                      batch)
+            params, opt_state, exchange_state, metrics = self.step_fn(
+                params, opt_state, exchange_state, batch)
             tokens_seen += batch["tokens"].numel() * self.world
             window_steps += 1
             if (step + 1) % cfg.log_every == 0 or step == cfg.total_steps - 1:
@@ -72,4 +76,4 @@ class Trainer:
                     f"step_ms={m['step_ms']:.1f} "
                     f"data_ms={m['data_ms']:.2f}")
         return {"params": params, "opt_state": opt_state,
-                "history": history}
+                "exchange_state": exchange_state, "history": history}

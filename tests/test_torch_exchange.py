@@ -6,7 +6,8 @@
     ``abstract_grad_contributions``; nothing is allocated);
   * exchanged values on the reduced config, local path, within 1e-5,
     with the densify kernel path on both sides;
-  * averaging over a gloo world of 2 started by torch.multiprocessing.
+  * averaging over a gloo world of 2 started by torch.multiprocessing,
+    for the identity wire and for int8 with and without error feedback.
 """
 import socket
 
@@ -46,6 +47,13 @@ CONFIGS = {
     "dense_reduce": dict(sparse_as_dense=True),
     "sparse_gather": dict(),
     "alg2": dict(algorithm="proposed_algorithm2"),
+    "int8": dict(sparse_as_dense=True, codec="int8"),
+    "int8+ef": dict(sparse_as_dense=True, codec="int8",
+                    error_feedback=True),
+    "f16": dict(sparse_as_dense=True, codec="f16"),
+    "bf16+ef": dict(sparse_as_dense=True, codec="bf16+ef"),
+    "sparse_gather_int8": dict(codec="int8"),
+    "sparse_gather_f16+ef": dict(codec="f16", error_feedback=True),
 }
 THRESHOLDS = [None, 128 * 1024 * 1024]
 
@@ -111,11 +119,22 @@ def test_plan_matches_reference_at_full_width(full_width_trees, name,
             for s in tplan.schedule.stages] == \
         [(s.kind, s.bucket_id, s.leaf_ids) for s in jplan.schedule.stages]
     assert tplan.n_buckets == jplan.n_buckets
+    assert tplan.config.codec == jplan.config.codec
     assert tplan.n_collectives == jplan.n_collectives
+    assert [tplan.stage_collectives(s) for s in tplan.schedule.stages] == \
+        [jplan.stage_collectives(s) for s in jplan.schedule.stages]
     assert tplan.dense_bytes == jplan.dense_bytes
-    for p in (1, 8, 64):
+    assert tplan.state_bytes_per_stage() == jplan.state_bytes_per_stage()
+    assert tplan.state_bytes() == jplan.state_bytes()
+    for p in (1, 4, 8, 64):
         assert tplan.buffer_bytes(p) == jplan.buffer_bytes(p)
         assert tplan.wire_bytes(p) == jplan.wire_bytes(p)
+    if "int8" in name:
+        assert tplan.n_collectives == 2 * tplan.schedule.n_stages
+        if threshold is None:
+            assert tplan.n_collectives == 32
+    if name == "int8+ef" and threshold is None:
+        assert tplan.state_bytes() == 641_462_272
 
 
 def test_plan_is_cached_and_rejects_other_trees(full_width_trees):
@@ -165,7 +184,7 @@ def test_local_exchange_matches_reference(reduced_grads, name, threshold):
     kw = dict(fusion_threshold=threshold, use_kernel=True, **CONFIGS[name])
     want = JDistOpt(jadamw(1e-3), exchange=JExchangeConfig(**kw)).exchange(jg)
     got = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(**kw),
-                               group=None).exchange(_j_to_t(jg))
+                               group=None).exchange(_j_to_t(jg))[0]
     tl, jl = tree_flatten(got)[0], jax.tree_util.tree_leaves(want)
     assert len(tl) == len(jl)
     for t, j in zip(tl, jl):
@@ -181,11 +200,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_gloo_world_of_two_averages(tmp_path):
+@pytest.fixture(scope="module")
+def gloo_world_of_two(tmp_path_factory):
+    """Both ranks' exchange results from one gloo world of 2."""
+    out = tmp_path_factory.mktemp("gloo2")
     ctx = torch.multiprocessing.get_context("spawn")
     port = _free_port()
     procs = [ctx.Process(target=_torch_dist_worker.run,
-                         args=(r, 2, port, str(tmp_path))) for r in range(2)]
+                         args=(r, 2, port, str(out))) for r in range(2)]
     for p in procs:
         p.start()
     for p in procs:
@@ -194,7 +216,11 @@ def test_gloo_world_of_two_averages(tmp_path):
         if p.is_alive():
             p.kill()
         assert p.exitcode == 0
-    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    return [torch.load(out / f"rank{r}.pt") for r in range(2)]
+
+
+def test_gloo_world_of_two_averages(gloo_world_of_two):
+    res = gloo_world_of_two
     for name in ("dense_reduce", "sparse_gather", "dense_reduce_fused"):
         for leaf in ("embedding", "w", "b"):
             mean = (res[0][f"{name}/local/{leaf}"]
@@ -261,7 +287,50 @@ def test_distributed_optimizer_update_is_exchange_then_base(reduced_grads):
         sparse_as_dense=True, use_kernel=True))
     state = opt.init(params)
     u1, s1 = opt.update(g, state, params)
-    u2, s2 = opt.base.update(opt.exchange(g), state, params)
+    u2, s2 = opt.base.update(opt.exchange(g)[0], state, params)
     for a, b in zip(tree_flatten(u1)[0], tree_flatten(u2)[0]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert int(s1.step) == int(s2.step) == 1
+
+
+def _to_jax(tree):
+    """The worker's torch grad tree -> the reference's."""
+    def conv(x):
+        if isinstance(x, list):
+            return [conv(c) for c in x]
+        if isinstance(x, TSlices):
+            return JSlices(jnp.asarray(x.indices.numpy()),
+                           jnp.asarray(x.values.numpy()), x.dense_shape)
+        return jnp.asarray(x.numpy())
+    return {"embedding": conv(tree["embedding"]),
+            "layers": {k: conv(v) for k, v in tree["layers"].items()}}
+
+
+@pytest.mark.parametrize("name", sorted(_torch_dist_worker.INT8_CONFIGS))
+def test_gloo_world_of_two_int8_matches_reference(gloo_world_of_two, name):
+    """Every rank's result of an int8 exchange over gloo is the mean over
+    ranks of the reference codec's decode of that rank's own gradients:
+    each worker quantises against its own scale, and error feedback
+    keeps a per-rank residual.  Two exchanges in a row; atol 1e-6 covers
+    the f32 sum order of the decode-sum and of densify."""
+    kw = dict(use_kernel=True, **_torch_dist_worker.INT8_CONFIGS[name])
+    per_rank = []
+    for r in range(2):
+        jopt = JDistOpt(jadamw(1e-3), exchange=JExchangeConfig(**kw))
+        g0 = _to_jax(_torch_dist_worker.worker_grads(r, 0))
+        state = jopt.init_exchange_state(g0)
+        outs = []
+        for k in range(2):
+            tree, state = jopt.exchange(
+                _to_jax(_torch_dist_worker.worker_grads(r, k)), state=state)
+            outs.append({"embedding": tree["embedding"],
+                         "w": tree["layers"]["w"], "b": tree["layers"]["b"]})
+        per_rank.append(outs)
+    for k in range(2):
+        for leaf in ("embedding", "w", "b"):
+            mean = (np.asarray(per_rank[0][k][leaf])
+                    + np.asarray(per_rank[1][k][leaf])) / 2
+            for r in range(2):
+                np.testing.assert_allclose(
+                    gloo_world_of_two[r][f"{name}/{k}/{leaf}"].numpy(), mean,
+                    rtol=0, atol=1e-6)
