@@ -13,6 +13,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
                and edge cases (quantize bitwise), then time kernel, plain
                version and one library call where there is one with CUDA
                events against the least time the card could take;
+     attn_kernel — the same for flash attention: the forward path's three
+               shapes (causal 1 x 32768 x 16 x 64, cross 32768 x 256,
+               decode cross 8 x 1 x 256), the cases of
+               tests/test_kernels.py, causal Sq > Sk, a window, mixed
+               dtypes, strided and misaligned inputs, the kernel's own
+               q_offset and kv_len; f32 within 3e-5, bf16 within 3e-2
+               and, outside the small cases of tests/test_kernels.py,
+               also against the size of its reference output
+               (relative L2 1e-2, worst query row 1.5e-2, max abs 2 bf16
+               ulps of max|ref|); the kernel refuses Dv != D; timed with
+               the L2 flushed, beside
+               ``scaled_dot_product_attention`` as the library yardstick;
   4. path    — the launcher (``repro_torch.launch.train.run``) trains
                full-width transformer-big in bf16: 4 steps of
                ``--dist horovod --grad-accum dense_reduce`` and 1 step of
@@ -25,9 +37,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
                each run and read after: one quantize launch per schedule
                stage, densify once a step, two allgathers per dense stage
                and three per gather stage, no allreduce;
-  6. small   — the reduced config in f32 trains 2 steps on the card and
+  6. prefill — full-width transformer-big's prefill step on one
+               32768-token sequence with 256 encoder states:
+               ``forward(attn_impl="kernel")`` and ``head`` on the last
+               position, 12 kernel launches a forward (counts reset just
+               before, read just after); logits held against the plain
+               chunked path;
+  7. translate — 8 requests: ``Model.prefill`` over a 16-token prefix and
+               32 greedy ``decode_step``s cross-attending 256 f32 encoder
+               states through the kernel, 6 launches a step; every step's
+               logits held against the plain path teacher-forced on the
+               same tokens;
+  8. serve   — ``ServeEngine.generate`` on 8 prompts of 64 tokens, 32 new
+               tokens (no encoder states, so no launch); shape and EOS
+               masking;
+  9. small   — the reduced config in f32 trains 2 steps on the card and
                on the CPU, with the identity wire and with ``--codec
-               int8 --error-feedback``, and the losses must agree.
+               int8 --error-feedback``, and the losses must agree; then
+               its prefill step and 4 translate steps on the card (the
+               kernel's f32 path) and the CPU, logits within 3e-5.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -73,6 +101,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class PhaseClock:
+    """Runs a phase and prints its wall time, so the run's budget shows."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self, name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        print(json.dumps({"phase_done": name,
+                          "s": time.perf_counter() - t,
+                          "total_s": time.perf_counter() - self.t0}))
+        return out
 
 
 def phase_build(build) -> None:
@@ -429,6 +473,462 @@ def phase_small_reference(train) -> None:
                           "card_losses": lc, "cpu_losses": lh}))
 
 
+# ---------------------------------------------------------------------------
+# the forward and serving path (flash attention)
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
+ATTN_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),   # tests/test_kernels.py
+            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+# bf16 outputs outside the small cases of tests/test_kernels.py: there
+# |out| falls as 1/sqrt(keys attended) (about 0.013 at the median row of
+# the causal 32768 prefill), so 3e-2 absolute would pass a dropped or
+# doubled key tile.  The error is held to the reference output's size
+# instead.  Rounding alone (both outputs rounded to bf16, so at most one
+# ulp, 2**-7 relative, apart; p rounded to bf16 before P.V, ~1e-3 rms
+# relative) keeps a query row's relative L2 error under 2**-7; dropping
+# one 64-key tile from a row of n keys moves it by about 8/sqrt(n),
+# 4.4e-2 at n = 32768.  Read on an H100 80GB HBM3 at 700 W: relative L2
+# at most 2.3e-3, worst row 5.0e-3, max abs at most one ulp of max|ref|;
+# the limits leave a factor of 2 to 4 above that.
+ATTN_SCALED_TOL = dict(rel_l2=1e-2, row_rel_l2=1.5e-2, max_abs_ulps=2)
+# Logits of full-width transformer-big in bf16, kernel path against the
+# plain chunked path: both round every activation to bf16 (2**-9
+# relative) at ~30 points between an attention output and the logits,
+# and the kernel also rounds its probabilities to bf16 before P.V; the
+# logits are O(1) (tied embedding drawn at d**-0.5).  So a few bf16
+# roundings of a unit-sized logit, well under 0.25, and an error that
+# stays a small fraction of the logits as a whole (relative L2 2e-2).
+# A wrong mask or a wrong head moves the logits by O(1) everywhere.
+PATH_TOL = dict(max_abs=0.25, rel_l2=2e-2)
+PREFILL_LEN, N_ENC = 32768, 256
+TRANSLATE_B, TRANSLATE_PREFIX, TRANSLATE_NEW = 8, 16, 32
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
+
+
+def attended_pairs(sq, sk, causal, window):
+    """(query, key) pairs the masks leave, per batch entry and head
+    (query i at position i + sk - sq)."""
+    qpos = torch.arange(sq, dtype=torch.int64) + (sk - sq)
+    hi = torch.clamp(qpos + 1, max=sk) if causal \
+        else torch.full_like(qpos, sk)
+    lo = torch.clamp(qpos - window + 1, min=0) if window is not None \
+        else torch.zeros_like(qpos)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def attn_bound(q, k, causal, window):
+    """Least time (ms) and its kind for one attention call: 4·D flops
+    per attended pair and head at the rate of the inputs' type (bf16
+    tensor cores, else f32), against q, k, v read and o written once."""
+    b, sq, h, d = q.shape
+    pairs = attended_pairs(sq, k.shape[1], causal, window)
+    flops = 4 * d * pairs * h * b
+    rate = BF16_FLOPS if q.dtype == k.dtype == torch.bfloat16 else F32_FLOPS
+    nbytes = 2 * q.numel() * q.element_size() \
+        + 2 * k.numel() * k.element_size()
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes
+            else "bytes", flops, nbytes)
+
+
+def cuda_ms_cold(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn()`` with the 50 MB L2 flushed before
+    each call (as a layer's kernel finds it after the other layers'
+    weights have streamed through), CUDA events around each call."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def _randn(shape, dtype, gen):
+    return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+
+def phase_attn_kernel(FA) -> dict:
+    """flash attention: every case against the plain version on the card
+    (f32 3e-5, bf16 3e-2), then kernel, plain version and the library
+    yardstick timed at the path's three shapes against the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, b, sq, sk, h, hkv, d, window, causal, q dtype, kv dtype
+    path_cases = [
+        ("prefill_self", 1, PREFILL_LEN, PREFILL_LEN, 16, 16, 64, None,
+         True, bf, bf),
+        ("prefill_cross", 1, PREFILL_LEN, N_ENC, 16, 16, 64, None, False,
+         bf, bf),
+        ("decode_cross", TRANSLATE_B, 1, N_ENC, 16, 16, 64, None, False,
+         bf, f32),
+    ]
+    ref_cases = [   # tests/test_kernels.py CASES, in f32 and bf16
+        (2, 16, 16, 4, 2, 32, None, True), (1, 64, 64, 2, 2, 64, 16, True),
+        (2, 8, 40, 4, 4, 32, None, True), (1, 32, 32, 4, 1, 16, 8, True),
+        (2, 24, 24, 2, 2, 128, None, False), (1, 17, 23, 3, 3, 48, None, True)]
+    cases = list(path_cases)
+    small = set()      # checked at the reference's own tolerance
+    cases.append(("decode_cross_bf16", TRANSLATE_B, 1, N_ENC, 16, 16, 64,
+                  None, False, bf, bf))
+    for i, c in enumerate(ref_cases):
+        for dt in (f32, bf):
+            cases.append((f"case{i}_{str(dt)[6:]}",) + c + (dt, dt))
+            small.add(cases[-1][0])
+    for dt in (f32, bf):
+        cases += [(f"causal_sq_gt_sk_{str(dt)[6:]}", 2, 40, 24, 4, 2, 64,
+                   None, True, dt, dt),
+                  (f"window_{str(dt)[6:]}", 2, 1000, 1000, 4, 2, 64, 100,
+                   True, dt, dt),
+                  (f"mixed_{str(dt)[6:]}", 3, 70, 300, 8, 4, 128, None,
+                   False, dt, f32)]
+    max_err = 0.0
+    tensors = {}
+    for name, b, sq, sk, h, hkv, d, window, causal, qdt, kvdt in cases:
+        q = _randn((b, sq, h, d), qdt, gen)
+        k = _randn((b, sk, hkv, d), kvdt, gen)
+        v = _randn((b, sk, hkv, d), kvdt, gen)
+        out = FA.flash_attention_kernel(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+        errs = check_attn(name, out, ref, qdt, scaled=name not in small)
+        max_err = max(max_err, errs["max_abs_err"])
+        print(json.dumps({"phase": "attn_kernel", "case": name,
+                          "shape": [b, sq, sk, h, hkv, d], "window": window,
+                          "causal": causal, "q_dtype": str(qdt)[6:],
+                          "kv_dtype": str(kvdt)[6:], **errs}))
+        if name in {c[0] for c in path_cases}:
+            tensors[name] = (q, k, v, causal, window)
+        del q, k, v, out, ref
+    # the kernel's own arguments, a strided q and a misaligned k, v
+    q = _randn((2, 48, 4, 64), bf, gen)
+    k = _randn((2, 56, 2, 64), bf, gen)
+    v = _randn((2, 56, 2, 64), bf, gen)
+    packed = _randn((2, 48, 3, 4, 64), bf, gen)
+    flat = _randn((2 * 56 * 2 * 64 + 1,), bf, gen)
+    odd = flat[1:].view(2, 56, 2, 64)
+    extra = [
+        ("q_offset_kv_len", (q, k, v), dict(causal=True, q_offset=3,
+                                            kv_len=40, scale=0.2)),
+        ("window_kv_len", (q, k, v), dict(causal=True, window=9,
+                                          kv_len=50)),
+        ("strided_q", (packed[:, :, 1], k, v), dict(causal=True)),
+        ("misaligned_kv", (q, odd, odd), dict(causal=False)),
+    ]
+    for name, args, kw in extra:
+        out = FA.flash_attention_kernel(*args, **kw)
+        torch.cuda.synchronize()
+        errs = check_attn(name, out, FA.flash_attention_plain(*args, **kw),
+                          bf, scaled=True)
+        max_err = max(max_err, errs["max_abs_err"])
+        print(json.dumps({"phase": "attn_kernel", "case": name, "args": kw,
+                          **errs}))
+    # the kernel takes Dv == D only; the public wrapper does not reroute
+    from repro_torch.kernels import ops
+    try:
+        ops.flash_attention(q, k, v[..., :32].contiguous(), impl="kernel")
+    except ValueError:
+        pass
+    else:
+        fail("flash attention: impl='kernel' took Dv != D on the card")
+    result = {"max_abs_err": max_err}
+    for name, (q, k, v, causal, window) in tensors.items():
+        bound_ms, bound_by, flops, nbytes = attn_bound(q, k, causal, window)
+        kw = dict(causal=causal, window=window)
+        one_row = q.shape[1] == 1
+        ms = plain_ms = None
+        for order in ("kernel", "plain", "plain", "kernel"):
+            if order == "kernel":
+                t = cuda_ms_cold(lambda: FA.flash_attention_kernel(
+                    q, k, v, **kw), 50 if one_row else 10)
+                ms = t if ms is None else min(ms, t)
+            else:
+                t = cuda_ms_cold(lambda: FA.flash_attention_plain(
+                    q, k, v, **kw), 20 if one_row else 2)
+                plain_ms = t if plain_ms is None else min(plain_ms, t)
+        library_ms = None
+        if q.dtype == k.dtype:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = cuda_ms_cold(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal), 10)
+        timing_line = {
+            "phase": "attn_timing", "shape": name,
+            "q": list(q.shape), "kv": list(k.shape),
+            "q_dtype": str(q.dtype)[6:], "kv_dtype": str(k.dtype)[6:],
+            "causal": causal, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": ("torch.nn.functional.scaled_dot_product_attention"
+                             if library_ms is not None else
+                             "none: no single call takes bf16 q with f32 "
+                             "k, v"),
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes, "tflops": flops / ms / 1e9,
+            "l2": "flushed before each call"}
+        print(json.dumps(timing_line))
+        result[name] = timing_line
+    return result
+
+
+def check_attn(name, out, ref, qdt, scaled: bool) -> dict:
+    """Kernel output against the plain version's: every case at
+    ``ATTN_TOL``; bf16 outputs outside the small cases (``scaled``) also
+    at ``ATTN_SCALED_TOL``, relative to the reference output's size."""
+    if out.dtype != qdt or out.shape != ref.shape:
+        fail(f"flash attention {name}: got {out.dtype} {tuple(out.shape)}, "
+             f"want {qdt} {tuple(ref.shape)}")
+    o, r = out.float(), ref.float()
+    diff = o - r
+    err = diff.abs().max().item()
+    ref_max = r.abs().max().item()
+    res = {"max_abs_err": err, "max_abs_ref": ref_max,
+           "rms_ref": r.square().mean().sqrt().item()}
+    if not math.isfinite(err):
+        fail(f"flash attention {name}: output not finite")
+    res["tol"] = ATTN_TOL[qdt]
+    if not torch.allclose(o, r, **ATTN_TOL[qdt]):
+        fail(f"flash attention {name}: kernel disagrees with the plain "
+             f"version (max abs err {err})")
+    if not (scaled and qdt == torch.bfloat16):
+        return res
+    # rows that are fully masked are exactly 0 in both
+    d_row = diff.flatten(0, -2).norm(dim=-1)
+    r_row = r.flatten(0, -2).norm(dim=-1)
+    zero = r_row == 0
+    if bool((d_row[zero] != 0).any()):
+        fail(f"flash attention {name}: a fully masked row is not 0")
+    row_rel = (d_row[~zero] / r_row[~zero]).max().item() \
+        if bool((~zero).any()) else 0.0
+    rel_l2 = (diff.norm() / r.norm()).item() if ref_max > 0 else 0.0
+    ulp = 2.0 ** (math.floor(math.log2(ref_max)) - 7) if ref_max > 0 \
+        else 2.0 ** -133
+    max_abs_tol = ATTN_SCALED_TOL["max_abs_ulps"] * ulp
+    res.update(rel_l2=rel_l2, worst_row_rel_l2=row_rel,
+               tol={**ATTN_TOL[qdt], "rel_l2": ATTN_SCALED_TOL["rel_l2"],
+                    "row_rel_l2": ATTN_SCALED_TOL["row_rel_l2"],
+                    "max_abs": max_abs_tol})
+    if rel_l2 > ATTN_SCALED_TOL["rel_l2"] or err > max_abs_tol \
+            or row_rel > ATTN_SCALED_TOL["row_rel_l2"]:
+        fail(f"flash attention {name}: kernel disagrees with the plain "
+             f"version: {res}")
+    return res
+
+
+def check_logits(tag, got, want) -> dict:
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{tag}: logits {tuple(got.shape)} (want {tuple(want.shape)})"
+             f" or not finite")
+    max_abs = (got - want).abs().max().item()
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    if max_abs > PATH_TOL["max_abs"] or rel_l2 > PATH_TOL["rel_l2"]:
+        fail(f"{tag}: kernel path logits differ from the plain path: max "
+             f"abs {max_abs}, rel l2 {rel_l2} (limits {PATH_TOL})")
+    return {"max_abs": max_abs, "rel_l2": rel_l2}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_prefill(model, params, FA) -> dict:
+    """The prefill step (``forward(attn_impl="kernel")`` and ``head`` on
+    the last position, as the reference's dry-run lowers it) on one
+    32768-token sequence with 256 encoder states; 12 kernel launches per
+    forward; logits held against the plain chunked path."""
+    from repro_torch.data import make_pipeline
+    batch = make_pipeline(model.cfg, 1, PREFILL_LEN).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def prefill_step(impl):
+        h = model.forward(params, batch, attn_impl=impl)
+        return model.head(params, h[:, -1:])[:, 0]
+    want = 2 * model.cfg.n_layers        # self- and cross-attention
+    with torch.no_grad():
+        prefill_step("kernel")                     # warm-up
+        runs = []
+        for _ in range(3):
+            FA.flash_attention_kernel.launches = 0
+            logits, ms = timed(lambda: prefill_step("kernel"))
+            launches = FA.flash_attention_kernel.launches
+            if launches != want:
+                fail(f"prefill: flash attention launched {launches} times "
+                     f"in one forward (want {want})")
+            runs.append(ms)
+        torch.cuda.empty_cache()
+        plain, plain_ms = timed(lambda: prefill_step("chunked"))
+    diff = check_logits("prefill", logits, plain)
+    ms = statistics.median(runs)
+    line = {"phase": "prefill", "tokens": PREFILL_LEN, "enc": N_ENC,
+            "launches_per_forward": launches, "ms_runs": runs,
+            "ms_median": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
+            "plain_chunked_ms": plain_ms, "logits_vs_plain": diff,
+            "tol": PATH_TOL,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(json.dumps(line))
+    return {"launches": launches, **line}
+
+
+def translate(model, params, prefix, enc, impl, cache_len, n_new,
+              stream=None):
+    """``Model.prefill`` over the prefix, then ``n_new`` decode steps,
+    all cross-attending ``enc``: greedy, or teacher-forced on ``stream``
+    (B, n_new) when given.  Returns (logits per step, tokens, prefill
+    ms, decode ms per step)."""
+    cache = model.init_cache(prefix.shape[0], cache_len, device="cuda")
+    (logits, cache), pre_ms = timed(lambda: model.prefill(
+        params, cache, prefix, enc=enc, attn_impl=impl))
+    steps, toks = [logits], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        tok = (torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+               if stream is None else stream[:, i:i + 1])
+        toks.append(tok)
+        logits, cache = model.decode_step(params, cache, tok, enc=enc,
+                                          attn_impl=impl)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    return torch.stack(steps, 1), torch.cat(toks, 1), pre_ms, step_ms
+
+
+def phase_translate(model, params, FA) -> dict:
+    """8 requests of 256 f32 encoder states (the pipeline's stub): a
+    16-token target prefix through ``Model.prefill``, then 32 greedy
+    ``decode_step``s, every layer cross-attending through the kernel (6
+    launches a step); every step's logits held against the plain path
+    teacher-forced on the same tokens."""
+    from repro_torch.data import make_pipeline
+    batch = make_pipeline(model.cfg, TRANSLATE_B, TRANSLATE_PREFIX
+                          ).batch_at(1)
+    prefix = torch.from_numpy(batch["tokens"]).cuda()
+    enc = torch.from_numpy(batch["frontend"]).cuda()
+    cache_len = TRANSLATE_PREFIX + TRANSLATE_NEW
+    with torch.no_grad():
+        FA.flash_attention_kernel.launches = 0
+        logits, toks, pre_ms, step_ms = translate(
+            model, params, prefix, enc, "kernel", cache_len, TRANSLATE_NEW)
+        torch.cuda.synchronize()
+        launches = FA.flash_attention_kernel.launches
+        want = model.cfg.n_layers * (TRANSLATE_PREFIX + TRANSLATE_NEW)
+        if launches != want:
+            fail(f"translate: flash attention launched {launches} times "
+                 f"(want {want}: one per layer and step)")
+        plain, _, plain_pre_ms, plain_step_ms = translate(
+            model, params, prefix, enc, "chunked", cache_len, TRANSLATE_NEW,
+            stream=toks)
+    worst = {"max_abs": 0.0, "rel_l2": 0.0}
+    for i in range(logits.shape[1]):
+        d = check_logits(f"translate step {i}", logits[:, i], plain[:, i])
+        worst = {k: max(worst[k], d[k]) for k in worst}
+    line = {"phase": "translate", "requests": TRANSLATE_B,
+            "enc": N_ENC, "enc_dtype": "float32",
+            "prefix": TRANSLATE_PREFIX, "new_tokens": TRANSLATE_NEW,
+            "launches": launches, "prefill_ms": pre_ms,
+            "decode_ms_per_step": step_ms,
+            "tok_per_s": TRANSLATE_B / step_ms * 1e3,
+            "plain_prefill_ms": plain_pre_ms,
+            "plain_decode_ms_per_step": plain_step_ms,
+            "logits_vs_plain_worst": worst, "tol": PATH_TOL,
+            "first_row_tokens": toks[0].tolist()}
+    print(json.dumps(line))
+    return {"launches": launches, **line}
+
+
+def phase_serve(model, params, FA) -> dict:
+    """``ServeEngine.generate`` on 8 prompts of 64 tokens, 32 new tokens:
+    no encoder states, so no kernel launch (the reference's engine passes
+    none); output shape and EOS masking asserted."""
+    import numpy as np
+    from repro_torch.serving import ServeEngine
+    prompts = np.random.default_rng(3).integers(
+        3, model.cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    cache_len = SERVE_PROMPT + SERVE_NEW + 1
+    probe = ServeEngine(model, params, cache_len=cache_len, eos_id=-1)
+    probe.generate(prompts[:, :4], max_new=2)     # warm-up
+    FA.flash_attention_kernel.launches = 0
+    out, ms = timed(lambda: probe.generate(prompts, max_new=SERVE_NEW))
+    launches = FA.flash_attention_kernel.launches
+    if out.shape != (SERVE_B, SERVE_NEW) or out.dtype != np.int32 \
+            or not ((out >= 0) & (out < model.cfg.vocab)).all():
+        fail(f"serve: output {out.shape} {out.dtype} out of range")
+    if launches != 0:
+        fail(f"serve: {launches} kernel launches without encoder states")
+    # prefill and the first token alone: the rest of ``ms`` is decode
+    _, pre_ms = timed(lambda: probe.generate(prompts, max_new=1))
+    eos = int(out[0, 2])
+    masked = ServeEngine(model, params, cache_len=cache_len, eos_id=eos
+                         ).generate(prompts, max_new=SERVE_NEW)
+    for row in masked:
+        hits = np.flatnonzero(row == eos)
+        if hits.size and not (row[hits[0]:] == eos).all():
+            fail(f"serve: row continues after EOS {eos}: {row.tolist()}")
+    if not (masked[0, 2:] == eos).all():
+        fail("serve: the first row did not stop at its third token")
+    decode_ms = (ms - pre_ms) / (SERVE_NEW - 1)
+    line = {"phase": "serve", "requests": SERVE_B, "prompt": SERVE_PROMPT,
+            "new_tokens": SERVE_NEW, "launches": launches,
+            "generate_ms": ms, "generate_first_token_ms": pre_ms,
+            "decode_ms_per_token_step": decode_ms,
+            "tok_per_s": SERVE_B * SERVE_NEW / ms * 1e3,
+            "decode_tok_per_s": SERVE_B / decode_ms * 1e3,
+            "eos_masked_shape": list(masked.shape)}
+    print(json.dumps(line))
+    return line
+
+
+def phase_small_forward() -> None:
+    """The reduced config in f32: the prefill step and a 4-token prefix
+    plus 4 teacher-forced translate steps on the card (the kernel's f32
+    path) and on the CPU (its plain version), logits within 3e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    model = build_model(get_config("transformer-big").reduced())
+    cpu = model.init(seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    batch = make_pipeline(model.cfg, 2, 16).batch_at(0)
+    tol = ATTN_TOL[torch.float32]
+    errs = []
+    with torch.no_grad():
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            h = model.forward(params, b, attn_impl="kernel")
+            logits = [model.head(params, h[:, -1])]
+            cache = model.init_cache(2, 8, device=dev)
+            lg, cache = model.prefill(params, cache, b["tokens"][:, :4],
+                                      enc=b["frontend"], attn_impl="kernel")
+            logits.append(lg)
+            for i in range(4, 8):
+                lg, cache = model.decode_step(
+                    params, cache, b["tokens"][:, i:i + 1], enc=b["frontend"],
+                    attn_impl="kernel")
+                logits.append(lg)
+            errs.append([x.cpu() for x in logits])
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(*errs)):
+        err = (a - c).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, c, **tol):
+            fail(f"small forward: logits {i} card vs cpu max abs err {err}")
+    print(json.dumps({"phase": "small_forward", "steps": len(errs[0]),
+                      "max_abs_err": worst, "tol": tol}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -437,7 +937,9 @@ def main() -> int:
     from repro_torch.core import comm
     from repro_torch.data import make_pipeline
     from repro_torch.kernels import build, densify as D, quantize as Q
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
+    from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -446,14 +948,24 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
-    phase_build(build)
+    clock = PhaseClock()
+    clock("build", phase_build, build)
     tokens = make_pipeline(get_config("transformer-big"), 8, 256
                            ).batch_at(0)["tokens"]
-    kern = phase_kernel(D, tokens)
-    qkern = phase_quantize_kernel(Q)
-    path = phase_path(train, D, comm)
-    codec = phase_codec_path(train, D, Q, comm, path)
-    phase_small_reference(train)
+    kern = clock("kernel", phase_kernel, D, tokens)
+    qkern = clock("quantize_kernel", phase_quantize_kernel, Q)
+    akern = clock("attn_kernel", phase_attn_kernel, FA)
+    path = clock("path", phase_path, train, D, comm)
+    codec = clock("codec", phase_codec_path, train, D, Q, comm, path)
+    torch.cuda.empty_cache()
+    model = build_model(get_config("transformer-big"))
+    params = model.init(seed=0, device="cuda")
+    prefill = clock("prefill", phase_prefill, model, params, FA)
+    trans = clock("translate", phase_translate, model, params, FA)
+    clock("serve", phase_serve, model, params, FA)
+    del params
+    clock("small", phase_small_reference, train)
+    clock("small_forward", phase_small_forward)
     print(json.dumps({"kernels": [{
         "name": "densify", "route": "cuda",
         "source": "src/repro_torch/csrc/densify.cu",
@@ -470,7 +982,17 @@ def main() -> int:
         "max_abs_err": qkern["max_abs_err"],
         "ms": qkern["kernel_ms"], "plain_ms": qkern["plain_ms"],
         "bound_ms": qkern["bound_ms"], "bound_by": qkern["bound_by"],
-        "library_ms": qkern["library_ms"]}]}))
+        "library_ms": qkern["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": prefill["launches"] + trans["launches"],
+        "max_abs_err": akern["max_abs_err"],
+        "ms": akern["prefill_self"]["kernel_ms"],
+        "plain_ms": akern["prefill_self"]["plain_ms"],
+        "bound_ms": akern["prefill_self"]["bound_ms"],
+        "bound_by": akern["prefill_self"]["bound_by"],
+        "library_ms": akern["prefill_self"]["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

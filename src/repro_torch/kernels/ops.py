@@ -4,15 +4,37 @@ Each wrapper dispatches on the device of the tensors it is given: a CUDA
 tensor launches the hand-written kernel (or raises), a CPU tensor takes
 the kernel's plain PyTorch version.  Nothing falls back from one to the
 other.
+
+``flash_attention`` also selects the attention algorithm by ``impl``,
+named after what it runs; each maps to one ``impl`` of
+``repro.kernels.ops.flash_attention``:
+
+  ========== ================ ==========================================
+  port impl  reference impl   what it runs
+  ========== ================ ==========================================
+  "ref"      "xla"            full softmax (``ref.attention_ref``)
+  "chunked"  "xla_chunked"    online softmax over kv chunks in plain
+                              PyTorch (``chunked_attention``); the
+                              training path, differentiable
+  "kernel"   "pallas"         the flash attention kernel (forward only)
+  ========== ================ ==========================================
+
+The models' ``attn_impl`` arguments take the same names.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.densify import densify_kernel, densify_plain
+from repro_torch.kernels.flash_attention import (
+    NEG_INF, flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.quantize import quantize_kernel, quantize_plain
+
+ATTN_IMPLS = ("ref", "chunked", "kernel")
 
 
 def densify(indices: torch.Tensor, values: torch.Tensor,
@@ -40,3 +62,99 @@ def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if flat.device.type == "cpu":
         return quantize_plain(flat)
     raise ValueError(f"quantize_int8: unsupported device {flat.device}")
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: repeat kv heads to match query heads, ``jnp.repeat``'s order.
+    (B, S, Hkv, D) -> (B, S, H, D)."""
+    if k.shape[2] == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // k.shape[2], dim=2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    impl: str = "kernel",
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """Multi-head attention, q (B, Sq, H, D), k/v (B, Sk, Hkv, D) (GQA
+    ok) -> (B, Sq, H, Dv) in q's dtype.  Query i sits at position
+    ``i + Sk - Sq``.  ``impl`` as in the module docstring; ``block_k``
+    sets the chunk of ``"chunked"`` (4096 keys by default, never more
+    than Sk rounded up to 8).  Under ``"kernel"`` mixed head dims
+    (Dv != D) run the plain version on CPU tensors and raise on CUDA
+    tensors: the kernel takes Dv == D only, and nothing falls back."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"flash_attention: impl {impl!r} not in "
+                         f"{ATTN_IMPLS}")
+    if impl == "ref":
+        h = q.shape[2]
+        return ref.attention_ref(q, _expand_kv(k, h), _expand_kv(v, h),
+                                 causal=causal, window=window)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 block_k=block_k or 4096)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the kernel has no backward "
+                           "(nor has the reference's); differentiate "
+                           "through impl='chunked'")
+    if q.device.type == "cuda":
+        return flash_attention_kernel(q, k, v, causal=causal, window=window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, window: Optional[int] = None,
+                      block_k: int = 4096) -> torch.Tensor:
+    """Online-softmax attention over kv chunks, in f32 (the reference's
+    ``_chunked_attention``).
+
+    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, Dv) in q's dtype.
+    Scale ``D**-0.5`` applied to q; query i sits at position
+    ``i + Sk - Sq``; causal keeps keys at or before it, ``window`` keeps
+    the last ``window`` of those.  Running ``(acc, m, l)`` with ``l``
+    clamped at 1e-30."""
+    b, sq, h, d = q.shape
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    dv = v.shape[-1]
+    sk = k.shape[1]
+    block_k = min(block_k, _round_up(sk, 8))
+    nchunks = -(-sk // block_k)
+    pad = nchunks * block_k - sk
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.to(torch.float32) * d ** -0.5
+    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for ci in range(nchunks):
+        sl = slice(ci * block_k, (ci + 1) * block_k)
+        kb = kp[:, sl].to(torch.float32)
+        vb = vp[:, sl].to(torch.float32)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        k_pos = ci * block_k + torch.arange(block_k, device=q.device)
+        mask = (k_pos[None, :] < sk).expand(sq, block_k)
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        if window is not None:
+            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)

@@ -1,7 +1,7 @@
 """Plain-torch oracles for the port's kernels (``repro.kernels.ref``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,3 +17,32 @@ def densify_ref(indices: torch.Tensor, values: torch.Tensor,
     zeros = torch.zeros(dense_shape, dtype=values.dtype,
                         device=values.device)
     return zeros.index_add_(0, safe.long(), vals)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention by full softmax (``repro.kernels.ref``'s
+    oracle for flash attention).
+
+    q (B, Sq, H, D), k/v (B, Sk, H, D) -> (B, Sq, H, D) in q's dtype.
+    Query i sits at position ``i + Sk - Sq``; ``window`` keeps the last
+    ``window`` keys up to and including it.  Fully masked rows give 0.
+    Scores are taken in the promoted input dtype, then softmaxed in f32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = torch.promote_types(q.dtype, k.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(dt),
+                          k.to(dt)).to(torch.float32) * scale
+    sq, sk = q.shape[1], k.shape[1]
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p,
+                        v.to(torch.float32)).to(q.dtype)

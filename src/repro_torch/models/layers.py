@@ -6,22 +6,25 @@ Parameter layouts and the numerics (f32 norms, RoPE and softmax; matmuls
 in the parameters' dtype) follow the reference, so both packages compute
 the same function from the same parameters.
 
-Attention is plain PyTorch (``chunked_attention``): einsums and an online
-softmax over kv chunks, the reference's ``xla_chunked`` path.  It calls no
-fused library kernel.
+Attention without a cache dispatches through
+``repro_torch.kernels.ops.flash_attention``, so ``attn_impl`` ("ref",
+"chunked" or "kernel"; see that module) is a runtime choice; cached
+decode attention (``decode_attention``) is plain PyTorch, as the
+reference's is plain jnp.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import NEG_INF
 
 Params = Dict[str, Any]
-NEG_INF = -1e30
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -81,61 +84,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# Attention (no cache: training)
+# Attention
 # ---------------------------------------------------------------------------
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool, window: Optional[int] = None,
-                      block_k: int = 4096) -> torch.Tensor:
-    """Online-softmax attention over kv chunks, in f32.
-
-    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D) in q's dtype.
-    Scale ``D**-0.5``; query i sits at position ``i + Sk - Sq``; causal
-    keeps keys at or before it, ``window`` keeps the last ``window`` of
-    those.  Running ``(acc, m, l)`` with ``l`` clamped at 1e-30, as in
-    ``repro.kernels.ops._chunked_attention``."""
-    b, sq, h, d = q.shape
-    if k.shape[2] != h:                                  # GQA
-        k = k.repeat_interleave(h // k.shape[2], dim=2)
-        v = v.repeat_interleave(h // v.shape[2], dim=2)
-    dv = v.shape[-1]
-    sk = k.shape[1]
-    block_k = min(block_k, _round_up(sk, 8))
-    nchunks = -(-sk // block_k)
-    pad = nchunks * block_k - sk
-    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
-    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
-    qf = q.to(torch.float32) * d ** -0.5
-    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
-    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    for ci in range(nchunks):
-        sl = slice(ci * block_k, (ci + 1) * block_k)
-        kb = kp[:, sl].to(torch.float32)
-        vb = vp[:, sl].to(torch.float32)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
-        k_pos = ci * block_k + torch.arange(block_k, device=q.device)
-        mask = (k_pos[None, :] < sk).expand(sq, block_k)
-        if causal:
-            mask = mask & (q_pos[:, None] >= k_pos[None, :])
-        if window is not None:
-            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        p = torch.where(mask, p, 0.0)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
-
 
 def init_attention(gen, cfg: ArchConfig, device) -> Params:
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
@@ -149,8 +99,18 @@ def init_attention(gen, cfg: ArchConfig, device) -> Params:
 
 def attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor,
-              window: Optional[int] = None) -> torch.Tensor:
-    """Causal self-attention with GQA and RoPE over the whole sequence."""
+              kv_cache: Optional[Dict[str, Any]] = None,
+              window: Optional[int] = None, attn_impl: str = "chunked"
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Self-attention with GQA, RoPE and an optional KV cache.
+
+    Without a cache: causal attention over x (training, prefill) through
+    ``ops.flash_attention(impl=attn_impl)``.  With one: x holds the new
+    token(s), written at each slot's own position, and attention runs
+    over the cache (``decode_attention``); the updated cache is returned.
+    Cache: {"k", "v": (B, C, KV, HD), "length": (B,) tokens seen per
+    slot, "ring": bool} -- a ring buffer of the last C tokens if "ring"
+    (default: ``window is not None``)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, s, h, hd)
@@ -158,8 +118,73 @@ def attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     v = (x @ p["wv"]).reshape(b, s, kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    out = chunked_attention(q, k, v, causal=True, window=window)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+    new_cache = None
+    if kv_cache is not None:
+        cache_len = kv_cache["k"].shape[1]
+        pos0 = kv_cache["length"]
+        ring = bool(kv_cache.get("ring", window is not None))
+        slot = pos0 % cache_len if ring else pos0
+        ck = _batched_update(kv_cache["k"], k, slot)
+        cv = _batched_update(kv_cache["v"], v, slot)
+        new_cache = {"k": ck, "v": cv, "length": pos0 + s, "ring": ring}
+        out = decode_attention(q, ck, cv, length=pos0 + s, window=window,
+                               ring=ring)
+    else:
+        out = kops.flash_attention(q, k, v, causal=True, window=window,
+                                   impl=attn_impl)
+    return out.reshape(b, s, h * hd) @ p["wo"], new_cache
+
+
+def _batched_update(cache: torch.Tensor, new: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+    """Per-slot cache write into a copy: cache (B, C, ...), new (B, s,
+    ...), pos (B,) -- each batch entry writes at its OWN position.  As
+    ``jax.lax.dynamic_update_slice_in_dim`` does, a start that would run
+    past the end is clamped to ``C - s`` (the write lands on the last s
+    slots; nothing is dropped or wrapped)."""
+    b, c = cache.shape[:2]
+    s = new.shape[1]
+    if s > c:
+        raise ValueError(f"cache update of {s} rows into {c} slots")
+    start = torch.clamp(pos.to(torch.int64), 0, c - s)
+    rows = start[:, None] + torch.arange(s, device=cache.device)
+    out = cache.clone()
+    out[torch.arange(b, device=cache.device)[:, None], rows] = \
+        new.to(cache.dtype)
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: torch.Tensor,
+                     window: Optional[int] = None,
+                     ring: bool = False) -> torch.Tensor:
+    """Attention of a few query rows over a KV cache, plain PyTorch.
+
+    q (B, s, H, D) with small s (decode: s = 1); cache (B, C, KV, D);
+    ``length`` (B,) tokens written per slot INCLUDING the current ones.
+    ring: the cache holds the last C tokens and every written slot is in
+    the window.  Otherwise slot == position: slots at or past the row's
+    own count are masked, and with ``window`` so are slots ``window`` or
+    more behind it.  Row i sits at position ``length - s + i``, so with
+    s > 1 (chunked prefill) each row sees slots up to its own.  GQA by
+    grouped einsums; scores in f32 (exact products of the cache dtype),
+    softmax in f32, probabilities cast to q's dtype for the value sum."""
+    b, s, h, d = q.shape
+    c, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, d)
+    scores = torch.einsum("bskgd,bckd->bkgsc", qg.to(torch.float32),
+                          k_cache.to(torch.float32)) * d ** -0.5
+    slots = torch.arange(c, device=q.device)
+    length = torch.broadcast_to(length, (b,))
+    qpos = length[:, None] - s + 1 + torch.arange(s, device=q.device)
+    valid = slots[None, None, :] < torch.clamp(qpos, max=c)[:, :, None]
+    if not ring and window is not None:
+        valid = valid & (slots[None, None, :] >= (qpos - window)[:, :, None])
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    p_ = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgsc,bckd->bskgd", p_.to(q.dtype), v_cache)
+    return out.reshape(b, s, h, d)
 
 
 def init_cross_attention(gen, cfg: ArchConfig, device) -> Params:
@@ -172,15 +197,22 @@ def init_cross_attention(gen, cfg: ArchConfig, device) -> Params:
 
 
 def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                    enc: torch.Tensor) -> torch.Tensor:
-    """Non-causal attention from decoder states to encoder states."""
+                    enc: torch.Tensor, attn_impl: str = "chunked"
+                    ) -> torch.Tensor:
+    """Non-causal attention from decoder states to encoder states.  The
+    encoder projections run in the promoted dtype of ``enc`` and the
+    weights, as ``jnp.einsum`` promotes them (f32 encoder states give f32
+    keys and values under bf16 weights)."""
     b, s, _ = x.shape
     f = enc.shape[1]
     h, hd = cfg.n_heads, cfg.resolved_head_dim
+    dt = torch.promote_types(enc.dtype, p["wk"].dtype)
+    enc = enc.to(dt)
     q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (enc @ p["wk"]).reshape(b, f, h, hd)
-    v = (enc @ p["wv"]).reshape(b, f, h, hd)
-    out = chunked_attention(q, k, v, causal=False, window=None)
+    k = (enc @ p["wk"].to(dt)).reshape(b, f, h, hd)
+    v = (enc @ p["wv"].to(dt)).reshape(b, f, h, hd)
+    out = kops.flash_attention(q, k, v, causal=False, window=None,
+                               impl=attn_impl)
     return out.reshape(b, s, h * hd) @ p["wo"]
 
 

@@ -1,6 +1,11 @@
 """Model assembly for the ported family: ``audio`` (enc-dec decoder with
 cross-attention to encoder-state embeddings; the paper's transformer-big).
 
+Training runs ``loss``/``forward``; the prefill step runs ``forward``
+and ``head`` on the last position; serving runs ``init_cache``,
+``prefill`` and ``decode_step`` (``repro.models.model``'s serving API for
+the attention families).
+
 Parameters are one nested dict whose per-layer leaves are stacked on a
 leading ``n_layers`` axis, the reference's layout (``repro.models.model``),
 so the gradient tree flattens to the same leaves, shapes, dtypes and order
@@ -36,17 +41,24 @@ def _init_block(gen, cfg: ArchConfig, device) -> Params:
 
 
 def _block(p: Params, cfg: ArchConfig, x: torch.Tensor,
-           positions: torch.Tensor, enc: Optional[torch.Tensor],
-           window: Optional[int]) -> torch.Tensor:
-    """Pre-norm self-attention, cross-attention and SwiGLU block."""
-    x = x + L.attention(p["attn"], cfg, L.rmsnorm(p["norm1"], x,
-                                                  cfg.norm_eps),
-                        positions, window=window)
+           positions: torch.Tensor, cache: Optional[Dict],
+           enc: Optional[torch.Tensor], window: Optional[int],
+           attn_impl: str) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Pre-norm self-attention (cached when ``cache`` is given),
+    cross-attention to ``enc`` and SwiGLU.  Returns (x, new cache); the
+    reference's third output, the MoE auxiliary loss, is always zero for
+    this family and is left out."""
+    a, new_cache = L.attention(p["attn"], cfg,
+                               L.rmsnorm(p["norm1"], x, cfg.norm_eps),
+                               positions, kv_cache=cache, window=window,
+                               attn_impl=attn_impl)
+    x = x + a
     if enc is not None and "xattn" in p:
         x = x + L.cross_attention(p["xattn"], cfg,
                                   L.rmsnorm(p["norm_x"], x, cfg.norm_eps),
-                                  enc)
-    return x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+                                  enc, attn_impl=attn_impl)
+    return x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x, cfg.norm_eps)), \
+        new_cache
 
 
 def _unstack(stacked: Params):
@@ -67,11 +79,12 @@ class Model:
             raise ValueError(f"the port models the audio (enc-dec) family "
                              f"only, got {self.cfg.family!r}")
 
-    def init(self, seed: int = 0, device="cpu") -> Params:
+    def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters with the reference's distributions, drawn on
         the CPU from ``torch.Generator().manual_seed(seed)`` (so a seed
-        gives the same weights on every device) and moved to ``device``.
-        ``device="meta"`` gives shapes and dtypes only."""
+        gives the same weights on every device) and moved to ``device``:
+        the card unless the caller asks for ``"cpu"``.  ``device="meta"``
+        gives shapes and dtypes only."""
         device = torch.device(device)
         if device.type == "meta":
             return self._init(None, device)
@@ -103,8 +116,12 @@ class Model:
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor],
                 taps: Optional[torch.Tensor] = None,
-                window: Optional[int] = None) -> torch.Tensor:
-        """Final hidden states (B, S, d) at the token positions."""
+                window: Optional[int] = None,
+                attn_impl: str = "chunked") -> torch.Tensor:
+        """Final hidden states (B, S, d) at the token positions.
+        ``attn_impl`` as in ``repro_torch.kernels.ops``: "chunked"
+        (training, differentiable), "kernel" (the flash attention kernel,
+        forward only: the prefill step) or "ref"."""
         cfg = self.cfg
         x = L.embed(params["embedding"], batch["tokens"], tap=taps)
         enc = None
@@ -112,16 +129,19 @@ class Model:
             enc = batch["frontend"].to(x.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         for lp in _unstack(params["layers"]):
-            x = _block(lp, cfg, x, positions, enc, window)
+            x, _ = _block(lp, cfg, x, positions, None, enc, window,
+                          attn_impl)
         return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              taps: Optional[torch.Tensor] = None,
              window: Optional[int] = None,
-             loss_chunk: int = 1024) -> Tuple[torch.Tensor, Dict]:
+             loss_chunk: int = 1024,
+             attn_impl: str = "chunked") -> Tuple[torch.Tensor, Dict]:
         """Token-mean cross-entropy, computed ``loss_chunk`` positions at
         a time so only one chunk's f32 logits are live."""
-        h = self.forward(params, batch, taps=taps, window=window)
+        h = self.forward(params, batch, taps=taps, window=window,
+                         attn_impl=attn_impl)
         labels = batch["labels"].long()
         mask = batch.get("loss_mask")
         if mask is None:
@@ -147,6 +167,71 @@ class Model:
         ce = tot / torch.clamp(cnt, min=1.0)
         metrics = {"ce": ce, "aux": torch.zeros_like(ce), "tokens": cnt}
         return ce, metrics
+
+    # ---------------- serving ----------------
+    def init_cache(self, batch: int, cache_len: int, device="cuda") -> Dict:
+        """Zeros KV cache: {"k", "v": (n_layers, B, cache_len, KV, HD)
+        in the model's dtype, "length": (B,) int32}.  ``cache_len`` is
+        the longest sequence (full cache) or the window (ring cache)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = L._dtype(cfg)
+        return {"length": torch.zeros((batch,), dtype=torch.int32,
+                                      device=device),
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def prefill(self, params: Params, cache: Dict, tokens: torch.Tensor,
+                enc: Optional[torch.Tensor] = None,
+                window: Optional[int] = None, attn_impl: str = "chunked",
+                ring: bool = False) -> Tuple[torch.Tensor, Dict]:
+        """Sequential prefill: feed ``tokens`` (B, S) one position at a
+        time through ``decode_step``; returns (last logits (B, vocab),
+        cache)."""
+        logits = None
+        for i in range(tokens.shape[1]):
+            logits, cache = self.decode_step(
+                params, cache, tokens[:, i:i + 1], enc=enc, window=window,
+                attn_impl=attn_impl, ring=ring)
+        return logits, cache
+
+    def decode_step(self, params: Params, cache: Dict,
+                    tokens: torch.Tensor,
+                    enc: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None,
+                    attn_impl: str = "chunked", ring: bool = False,
+                    n_valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """One decode step: tokens (B, 1) -> logits (B, vocab) and the
+        new cache.  ``enc`` (B, F, d) are the encoder states that every
+        layer cross-attends (through ``attn_impl``); the cached
+        self-attention is ``decode_attention``.
+
+        Chunked prefill: tokens (B, s) with s > 1 run all s positions in
+        one step (non-ring caches; the per-row causal mask keeps it
+        exact) and return all s logit rows (B, s, vocab).  ``n_valid``
+        (B,), when given, is the count of real tokens per slot: the cache
+        length advances by it instead of s."""
+        cfg = self.cfg
+        x = L.embed(params["embedding"], tokens)
+        s = x.shape[1]
+        length = cache["length"]
+        positions = length[:, None] + torch.arange(s, device=x.device)
+        ks, vs = [], []
+        for i, lp in enumerate(_unstack(params["layers"])):
+            lc = {"k": cache["k"][i], "v": cache["v"][i], "length": length,
+                  "ring": ring}
+            x, nc = _block(lp, cfg, x, positions, lc, enc, window,
+                           attn_impl)
+            ks.append(nc["k"])
+            vs.append(nc["v"])
+        step = n_valid if n_valid is not None else s
+        cache = {**cache, "k": torch.stack(ks), "v": torch.stack(vs),
+                 "length": (length + step).to(length.dtype)}
+        logits = self.head(params, L.rmsnorm(params["final_norm"], x,
+                                             cfg.norm_eps))
+        return (logits if s > 1 else logits[:, -1]), cache
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -91,7 +91,7 @@ def test_init_layout_matches_reference():
     assert [str(x.dtype) for x in jl] == ["bfloat16"] * len(jl)
     assert sorted(tparams) == sorted(jparams) == ["embedding", "final_norm",
                                                   "layers"]
-    small = build_model(cfg.reduced()).init(seed=1)
+    small = build_model(cfg.reduced()).init(seed=1, device="cpu")
     jsmall = jbuild_model(jget_config("transformer-big").reduced()).init(
         jax.random.PRNGKey(1))
     for t, j in zip(tree_flatten(small)[0], jax.tree_util.tree_leaves(jsmall)):
