@@ -25,6 +25,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
                ulps of max|ref|); the kernel refuses Dv != D; timed with
                the L2 flushed, beside
                ``scaled_dot_product_attention`` as the library yardstick;
+               and zamba2-7b's head dim 112: causal and window-8192
+               (1 x 32768 x 32 x 112, bf16) and small f32 and bf16 cases;
+     ssd_kernel — the SSD scan kernel against ``ssd_plain`` on the card:
+               the cases of tests/test_kernels.py, a ragged S and an
+               active clip at 2e-5, the main-path shape (x 1 x 32768 x
+               112 x 64 bf16, chunk 256) at ``SSD_SCALED_TOL``; kernel and
+               plain version timed there against the bound;
   4. path    — the launcher (``repro_torch.launch.train.run``) trains
                full-width transformer-big in bf16: 4 steps of
                ``--dist horovod --grad-accum dense_reduce`` and 1 step of
@@ -51,11 +58,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
   8. serve   — ``ServeEngine.generate`` on 8 prompts of 64 tokens, 32 new
                tokens (no encoder states, so no launch); shape and EOS
                masking;
-  9. small   — the reduced config in f32 trains 2 steps on the card and
+  9. hybrid  — full-width zamba2-7b in bf16 (weights from seed 0, init
+               time and memory): the prefill step on one 32768-token
+               sequence, 81 SSD and 13 flash attention launches a forward;
+               8 requests of a 16-token prefix and 32 greedy decode steps,
+               and ``ServeEngine.generate`` on 8 x 32-token prompts with
+               16 new tokens (no launch in either); then the weights cast
+               to f32 and the logits of the kernel path held against the
+               plain path on 4096 tokens at ``PATH_TOL`` (in bf16 the
+               difference is reported: 94 random residual blocks carry a
+               last-bit difference to O(0.3) of the logits);
+ 10. small   — the reduced config in f32 trains 2 steps on the card and
                on the CPU, with the identity wire and with ``--codec
                int8 --error-feedback``, and the losses must agree; then
                its prefill step and 4 translate steps on the card (the
-               kernel's f32 path) and the CPU, logits within 3e-5.
+               kernel's f32 path) and the CPU, logits within 3e-5; the
+               reduced zamba2 the same (forward, 4-token prefix, 4 decode
+               steps).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -570,6 +589,9 @@ def phase_attn_kernel(FA) -> dict:
          bf, bf),
         ("decode_cross", TRANSLATE_B, 1, N_ENC, 16, 16, 64, None, False,
          bf, f32),
+        # zamba2-7b's shared attention block, head dim 112
+        ("hybrid_self", 1, PREFILL_LEN, PREFILL_LEN, 32, 32, 112, None,
+         True, bf, bf),
     ]
     ref_cases = [   # tests/test_kernels.py CASES, in f32 and bf16
         (2, 16, 16, 4, 2, 32, None, True), (1, 64, 64, 2, 2, 64, 16, True),
@@ -579,6 +601,13 @@ def phase_attn_kernel(FA) -> dict:
     small = set()      # checked at the reference's own tolerance
     cases.append(("decode_cross_bf16", TRANSLATE_B, 1, N_ENC, 16, 16, 64,
                   None, False, bf, bf))
+    cases.append(("hybrid_window", 1, PREFILL_LEN, PREFILL_LEN, 32, 32, 112,
+                  8192, True, bf, bf))
+    for dt in (f32, bf):
+        cases.append((f"d112_{str(dt)[6:]}", 2, 100, 100, 4, 2, 112, None,
+                      True, dt, dt))
+        cases.append((f"d112_window_{str(dt)[6:]}", 1, 90, 90, 2, 2, 112, 17,
+                      True, dt, dt))
     for i, c in enumerate(ref_cases):
         for dt in (f32, bf):
             cases.append((f"case{i}_{str(dt)[6:]}",) + c + (dt, dt))
@@ -722,17 +751,420 @@ def check_attn(name, out, ref, qdt, scaled: bool) -> dict:
     return res
 
 
-def check_logits(tag, got, want) -> dict:
+# ---------------------------------------------------------------------------
+# the SSD scan kernel and the hybrid (zamba2-7b) path
+# ---------------------------------------------------------------------------
+
+SSD_TOL = dict(rtol=2e-5, atol=2e-5)        # tests/test_kernels.py
+# The main-path shape (bf16 inputs, chunk 256), kernel against ssd_plain:
+# both compute in f32 from the same bf16 values and differ in the order
+# of their sums only; the cumulative decay reaches ~41 in the fastest
+# heads, where a few-ulp difference in cum moves exp(+-cum) by ~1e-5
+# relative.  The limits leave 10x above that; a dropped key tile, a lost
+# chunk of state or a wrong head moves y by O(1) of its size.  Set before
+# the first run on the card (PERF.md).
+SSD_SCALED_TOL = dict(rel_l2=1e-4, max_abs_frac=1e-4)
+SSD_MAIN = (1, PREFILL_LEN, 112, 64, 64, 256)    # b, s, h, p, n, chunk
+HYBRID_CHECK_LEN = 4096
+HYBRID_B, HYBRID_PREFIX, HYBRID_NEW = 8, 16, 32
+HSERVE_B, HSERVE_PROMPT, HSERVE_NEW = 8, 32, 16
+
+
+def ssd_bound(b, s, h, p, n, chunk, in_bytes):
+    """Least time (ms) and its kind for one SSD launch: the head-free
+    masked C B^T once per (batch, chunk), and per head the lower-triangle
+    scores x (dt x), C @ state and the state update, in f32 (2 flops a
+    multiply-add), against x, dt, a, b, c read and y, state written
+    once."""
+    nc = -(-s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    flops = b * nc * tri * 2 * n \
+        + b * h * nc * (tri * 2 * p + 2 * (2 * chunk * n * p))
+    nbytes = b * s * h * p * in_bytes + 4 * b * s * h + 4 * h \
+        + 2 * b * s * n * in_bytes + 4 * b * s * h * p + 4 * b * h * n * p
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", flops, nbytes)
+
+
+def ssd_inputs(gen, b, s, h, p, n, dtype=torch.float32, a=None,
+               dt_shift=-4.0):
+    """x, b, c ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1) + dt_shift)
+    and a = -exp(U(0, 2.5)) (tests/test_kernels.py) unless given, f32."""
+    dev = "cuda"
+    x = torch.randn((b, s, h, p), device=dev, generator=gen).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), device=dev, generator=gen) + dt_shift)
+    if a is None:
+        a = -torch.exp(torch.rand((h,), device=dev, generator=gen) * 2.5)
+    bb = torch.randn((b, s, n), device=dev, generator=gen).to(dtype)
+    cc = torch.randn((b, s, n), device=dev, generator=gen).to(dtype)
+    return x, dt, a.to(dev, torch.float32), bb, cc
+
+
+def _pad_rows(args, chunk):
+    pad = (-args[0].shape[1]) % chunk
+    if not pad:
+        return args
+    x, dt, a, b, c = args
+    F = torch.nn.functional
+    return (F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), a,
+            F.pad(b, (0, 0, 0, pad)), F.pad(c, (0, 0, 0, pad)))
+
+
+def phase_ssd_kernel(K) -> dict:
+    """SSD scan: the kernel against ``ssd_plain`` on the card on the
+    cases of tests/test_kernels.py and a ragged S (2e-5), an active clip
+    (2e-5 of max|ref|) and the main-path shape (``SSD_SCALED_TOL``); then
+    both timed at the main-path shape against the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    mamba_a = lambda h: -torch.linspace(1.0, 16.0, h)     # exp(log(.))
+    cases = [(f"case{i}", c, {}) for i, c in enumerate([
+        (1, 16, 1, 4, 4, 8), (2, 64, 3, 8, 4, 16), (2, 50, 3, 8, 4, 16),
+        (1, 128, 2, 16, 8, 32)])]
+    cases += [
+        ("model_path", (2, 64, 4, 8, 8, 16), dict(a=mamba_a(4))),
+        ("ragged", (2, 1000, 3, 64, 64, 64), {}),
+        ("clip_active", (1, 512, 4, 64, 64, 256),
+         dict(a=-torch.linspace(8.0, 16.0, 4), dt_shift=3.0)),
+        ("main_bf16", SSD_MAIN, dict(a=mamba_a(SSD_MAIN[2]), dt_shift=-4.6,
+                                     dtype=torch.bfloat16)),
+    ]
+    max_err = 0.0
+    main = None
+    for name, (b, s, h, p, n, chunk), kw in cases:
+        args = ssd_inputs(gen, b, s, h, p, n, **kw)
+        padded = _pad_rows(args, chunk)
+        y, st = K.ssd_kernel(*padded, chunk)
+        torch.cuda.synchronize()
+        y_ref, st_ref = K.ssd_plain(*padded, chunk)
+        y, y_ref = y[:, :s], y_ref[:, :s]
+        if y.dtype != torch.float32 or tuple(y.shape) != (b, s, h, p) \
+                or tuple(st.shape) != (b, h, n, p):
+            fail(f"ssd {name}: got {y.dtype} {tuple(y.shape)} state "
+                 f"{tuple(st.shape)}")
+        if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+            fail(f"ssd {name}: output not finite")
+        err = (y - y_ref).abs().max().item()
+        st_err = (st - st_ref).abs().max().item()
+        ref_max = y_ref.abs().max().item()
+        line = {"phase": "ssd_kernel", "case": name,
+                "shape": [b, s, h, p, n, chunk],
+                "dtype": str(args[0].dtype)[6:], "max_abs_err": err,
+                "state_max_abs_err": st_err, "max_abs_ref": ref_max,
+                "max_abs_state": st_ref.abs().max().item()}
+        if name == "main_bf16":
+            rel = ((y - y_ref).norm() / y_ref.norm()).item()
+            st_rel = ((st - st_ref).norm() / st_ref.norm()).item()
+            st_frac = st_err / st_ref.abs().max().item()
+            line.update(rel_l2=rel, max_abs_frac=err / ref_max,
+                        state_rel_l2=st_rel, state_max_abs_frac=st_frac,
+                        tol=SSD_SCALED_TOL)
+            ok = max(rel, st_rel) <= SSD_SCALED_TOL["rel_l2"] and \
+                max(err / ref_max, st_frac) <= SSD_SCALED_TOL["max_abs_frac"]
+            main = padded
+        elif name == "clip_active":
+            cum = torch.cumsum((args[1] * args[2]).reshape(
+                b, -1, chunk, h), dim=2)
+            line["max_abs_cum"] = cum.abs().max().item()
+            if line["max_abs_cum"] <= 60.0:
+                fail(f"ssd {name}: the clip is not active")
+            scale = max(ref_max, 1e-30)
+            line["tol"] = {**SSD_TOL, "relative_to": "max|ref|"}
+            ok = torch.allclose(y / scale, y_ref / scale, **SSD_TOL) and \
+                torch.allclose(st, st_ref, **SSD_TOL)
+        else:
+            line["tol"] = SSD_TOL
+            ok = torch.allclose(y, y_ref, **SSD_TOL) and \
+                torch.allclose(st, st_ref, **SSD_TOL)
+        print(json.dumps(line))
+        if not ok:
+            fail(f"ssd {name}: kernel disagrees with ssd_plain: {line}")
+        max_err = max(max_err, err, st_err)
+        del args, padded, y, st, y_ref, st_ref
+
+    bound_ms, bound_by, flops, nbytes = ssd_bound(*SSD_MAIN, in_bytes=2)
+    chunk = SSD_MAIN[-1]
+    ms = plain_ms = None
+    for order in ("kernel", "plain", "plain", "kernel"):
+        if order == "kernel":
+            t = cuda_ms(lambda: K.ssd_kernel(*main, chunk), 5, warmup=1)
+            ms = t if ms is None else min(ms, t)
+        else:
+            t = cuda_ms(lambda: K.ssd_plain(*main, chunk), 2, warmup=1)
+            plain_ms = t if plain_ms is None else min(plain_ms, t)
+    timing = {"phase": "ssd_timing", "shape": list(SSD_MAIN),
+              "dtype": "bf16 x, b, c; f32 dt, a", "kernel_ms": ms,
+              "plain_ms": plain_ms, "library_ms": None,
+              "library_call": "none: no PyTorch call computes the SSD scan",
+              "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+              "bytes": nbytes, "tflops": flops / ms / 1e9}
+    print(json.dumps(timing))
+    return {"max_abs_err": max_err, **timing}
+
+
+def phase_hybrid_init(model):
+    """Full-width zamba2-7b in bf16, weights from seed 0 drawn on the
+    CPU generator layer by layer into the card; init time and memory."""
+    from repro_torch.tree import tree_flatten
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_flatten(params)[0])
+    if n != 6_750_840_528:
+        fail(f"hybrid init: {n} parameters (want 6750840528)")
+    print(json.dumps({"phase": "hybrid_init", "init_s": init_s,
+                      "parameters": n,
+                      "memory_allocated": torch.cuda.memory_allocated(),
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated()}))
+    return params
+
+
+def phase_hybrid_prefill(model, params, K, FA) -> dict:
+    """The prefill step (``forward(attn_impl="kernel")`` and ``head`` on
+    the last position) over one 32768-token sequence: 81 SSD launches and
+    13 flash attention launches a forward (counts reset just before each
+    run, read just after).  On the first 4096 tokens the logits are
+    compared with the plain path's (``"chunked"``: ssd_chunked and
+    chunked attention) and reported: in bf16, 94 residual blocks of
+    random weights carry any last-bit difference to O(0.3) of the logits
+    (either kernel alone does it, PERF.md), so the check at ``PATH_TOL``
+    is made in f32 (``phase_hybrid_f32``)."""
+    from repro_torch.data import make_pipeline
+    cfg = model.cfg
+    tokens = torch.from_numpy(make_pipeline(cfg, 1, PREFILL_LEN).batch_at(
+        0)["tokens"]).cuda()
+    want_ssd = cfg.n_layers
+    want_fa = cfg.n_layers // cfg.attn_every
+
+    def prefill_step(toks, impl):
+        h = model.forward(params, {"tokens": toks}, attn_impl=impl)
+        return model.head(params, h[:, -1:])[:, 0]
+
+    with torch.no_grad():
+        prefill_step(tokens, "kernel")                     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):
+            K.ssd_kernel.launches = 0
+            FA.flash_attention_kernel.launches = 0
+            logits, ms = timed(lambda: prefill_step(tokens, "kernel"))
+            ssd_n = K.ssd_kernel.launches
+            fa_n = FA.flash_attention_kernel.launches
+            if ssd_n != want_ssd or fa_n != want_fa:
+                fail(f"hybrid prefill: {ssd_n} SSD and {fa_n} flash "
+                     f"attention launches in one forward (want {want_ssd} "
+                     f"and {want_fa})")
+            runs.append(ms)
+        peak = torch.cuda.max_memory_allocated()
+        if tuple(logits.shape) != (1, cfg.vocab) \
+                or not torch.isfinite(logits).all():
+            fail(f"hybrid prefill: logits {tuple(logits.shape)} or not "
+                 f"finite")
+        short = tokens[:, :HYBRID_CHECK_LEN]
+        got, short_ms = timed(lambda: prefill_step(short, "kernel"))
+        torch.cuda.empty_cache()
+        plain, plain_ms = timed(lambda: prefill_step(short, "chunked"))
+    diff = logits_diff(f"hybrid prefill {HYBRID_CHECK_LEN}", got, plain)
+    ms = statistics.median(runs)
+    line = {"phase": "hybrid_prefill", "tokens": PREFILL_LEN,
+            "ssd_launches_per_forward": ssd_n,
+            "flash_launches_per_forward": fa_n, "ms_runs": runs,
+            "ms_median": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
+            "check_tokens": HYBRID_CHECK_LEN,
+            "kernel_ms_check_len": short_ms,
+            "plain_chunked_ms_check_len": plain_ms,
+            "logits_vs_plain_bf16": diff, "max_memory_allocated": peak}
+    print(json.dumps(line))
+    return line
+
+
+def phase_hybrid_f32(model, params, K, FA) -> dict:
+    """Full width and full depth in f32 (the bf16 weights cast, 27 GB):
+    the prefill step's logits on the first 4096 tokens, the kernel path
+    (both kernels' f32 paths; 81 SSD and 13 flash attention launches)
+    against the plain path, at ``PATH_TOL``."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    f32 = build_model(model.cfg.with_(dtype="float32"))
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(make_pipeline(model.cfg, 1, PREFILL_LEN)
+                              .batch_at(0)["tokens"][:, :HYBRID_CHECK_LEN]
+                              ).cuda()
+
+    def prefill_step(impl):
+        h = f32.forward(params, {"tokens": tokens}, attn_impl=impl)
+        return f32.head(params, h[:, -1:])[:, 0]
+
+    with torch.no_grad():
+        K.ssd_kernel.launches = 0
+        FA.flash_attention_kernel.launches = 0
+        got, ms = timed(lambda: prefill_step("kernel"))
+        launches = (K.ssd_kernel.launches, FA.flash_attention_kernel.launches)
+        if launches != (model.cfg.n_layers,
+                        model.cfg.n_layers // model.cfg.attn_every):
+            fail(f"hybrid f32: {launches} SSD and flash attention launches")
+        plain, plain_ms = timed(lambda: prefill_step("chunked"))
+    diff = check_logits(f"hybrid f32 prefill {HYBRID_CHECK_LEN}", got, plain)
+    line = {"phase": "hybrid_f32", "tokens": HYBRID_CHECK_LEN,
+            "ssd_launches": launches[0], "flash_launches": launches[1],
+            "kernel_ms": ms, "plain_chunked_ms": plain_ms,
+            "logits_vs_plain": diff, "tol": PATH_TOL,
+            "max_abs_logit": plain.abs().max().item()}
+    print(json.dumps(line))
+    return line
+
+
+def phase_hybrid_decode(model, params, K, FA) -> dict:
+    """8 requests: ``Model.prefill`` over a 16-token prefix, then 32
+    greedy ``decode_step``s (recurrent Mamba2 steps, cached shared
+    attention: no kernel launch, as in the reference); shapes, lengths
+    and finite logits asserted.  Not held against the forward: where a
+    chunk's cumulative decay passes the clip, the reference's chunked
+    scan drops near-diagonal terms that the recurrence keeps (ROADMAP
+    Queue 3), so the two differ by design; small_hybrid holds decode on
+    the card to the CPU."""
+    from repro_torch.data import make_pipeline
+    cfg = model.cfg
+    prefix = torch.from_numpy(make_pipeline(
+        cfg, HYBRID_B, HYBRID_PREFIX).batch_at(1)["tokens"]).cuda()
+    with torch.no_grad():
+        K.ssd_kernel.launches = 0
+        FA.flash_attention_kernel.launches = 0
+        cache = model.init_cache(HYBRID_B, HYBRID_PREFIX + HYBRID_NEW,
+                                 device="cuda")
+        (logits, cache), pre_ms = timed(
+            lambda: model.prefill(params, cache, prefix))
+        toks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HYBRID_NEW):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            logits, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / HYBRID_NEW
+        launches = K.ssd_kernel.launches + FA.flash_attention_kernel.launches
+        if launches != 0:
+            fail(f"hybrid decode: {launches} kernel launches (want 0)")
+        if tuple(logits.shape) != (HYBRID_B, cfg.vocab) \
+                or not torch.isfinite(logits).all() \
+                or int(cache["length"][0]) != HYBRID_PREFIX + HYBRID_NEW:
+            fail(f"hybrid decode: logits {tuple(logits.shape)}, length "
+                 f"{cache['length'].tolist()}")
+    line = {"phase": "hybrid_decode", "requests": HYBRID_B,
+            "prefix": HYBRID_PREFIX, "new_tokens": HYBRID_NEW,
+            "launches": launches, "prefill_ms": pre_ms,
+            "decode_ms_per_step": step_ms,
+            "tok_per_s": HYBRID_B / step_ms * 1e3,
+            "first_row_tokens": torch.cat(toks, 1)[0].tolist()}
+    print(json.dumps(line))
+    return line
+
+
+def phase_hybrid_serve(model, params, K, FA) -> dict:
+    """``ServeEngine.generate`` on 8 prompts of 32 tokens, 16 new tokens,
+    unchanged on the hybrid cache: no kernel launch; shape and EOS
+    masking asserted."""
+    import numpy as np
+    from repro_torch.serving import ServeEngine
+    prompts = np.random.default_rng(5).integers(
+        3, model.cfg.vocab, (HSERVE_B, HSERVE_PROMPT)).astype(np.int32)
+    cache_len = HSERVE_PROMPT + HSERVE_NEW + 1
+    probe = ServeEngine(model, params, cache_len=cache_len, eos_id=-1)
+    K.ssd_kernel.launches = 0
+    FA.flash_attention_kernel.launches = 0
+    out, ms = timed(lambda: probe.generate(prompts, max_new=HSERVE_NEW))
+    launches = K.ssd_kernel.launches + FA.flash_attention_kernel.launches
+    if out.shape != (HSERVE_B, HSERVE_NEW) or out.dtype != np.int32 \
+            or not ((out >= 0) & (out < model.cfg.vocab)).all():
+        fail(f"hybrid serve: output {out.shape} {out.dtype} out of range")
+    if launches != 0:
+        fail(f"hybrid serve: {launches} kernel launches (want 0)")
+    _, pre_ms = timed(lambda: probe.generate(prompts, max_new=1))
+    eos = int(out[0, 2])
+    masked = ServeEngine(model, params, cache_len=cache_len, eos_id=eos
+                         ).generate(prompts, max_new=HSERVE_NEW)
+    if not (masked[0, 2:] == eos).all() or not (masked[0] == out[0])[:3].all():
+        fail("hybrid serve: the first row did not stop at its third token")
+    for row in masked:
+        hits = np.flatnonzero(row == eos)
+        if hits.size and not (row[hits[0]:] == eos).all():
+            fail(f"hybrid serve: row continues after EOS {eos}")
+    decode_ms = (ms - pre_ms) / (HSERVE_NEW - 1)
+    line = {"phase": "hybrid_serve", "requests": HSERVE_B,
+            "prompt": HSERVE_PROMPT, "new_tokens": HSERVE_NEW,
+            "launches": launches, "generate_ms": ms,
+            "generate_first_token_ms": pre_ms,
+            "decode_ms_per_token_step": decode_ms,
+            "tok_per_s": HSERVE_B * HSERVE_NEW / ms * 1e3}
+    print(json.dumps(line))
+    return line
+
+
+def phase_small_hybrid(K) -> None:
+    """The reduced zamba2 in f32: the prefill step's forward and a 4-token
+    prefix plus 4 teacher-forced decode steps on the card (both kernels'
+    f32 paths) and on the CPU (their plain versions), logits within
+    3e-5."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    model = build_model(get_config("zamba2-7b").reduced())
+    cpu = model.init(seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, model.cfg.vocab, (2, 40)).astype(np.int32))
+    tol = ATTN_TOL[torch.float32]
+    outs = []
+    K.ssd_kernel.launches = 0
+    with torch.no_grad():
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            t = toks.to(dev)
+            h = model.forward(params, {"tokens": t}, attn_impl="kernel")
+            logits = [model.head(params, h[:, -1])]
+            cache = model.init_cache(2, 8, device=dev)
+            lg, cache = model.prefill(params, cache, t[:, :4])
+            logits.append(lg)
+            for i in range(4, 8):
+                lg, cache = model.decode_step(params, cache, t[:, i:i + 1])
+                logits.append(lg)
+            outs.append([x.cpu() for x in logits])
+    if K.ssd_kernel.launches != model.cfg.n_layers:
+        fail(f"small hybrid: {K.ssd_kernel.launches} SSD launches on the "
+             f"card (want {model.cfg.n_layers})")
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(*outs)):
+        err = (a - c).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, c, **tol):
+            fail(f"small hybrid: logits {i} card vs cpu max abs err {err}")
+    print(json.dumps({"phase": "small_hybrid", "steps": len(outs[0]),
+                      "max_abs_err": worst, "tol": tol}))
+
+
+def logits_diff(tag, got, want) -> dict:
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"{tag}: logits {tuple(got.shape)} (want {tuple(want.shape)})"
              f" or not finite")
-    max_abs = (got - want).abs().max().item()
-    rel_l2 = ((got - want).norm() / want.norm()).item()
+    return {"max_abs": (got - want).abs().max().item(),
+            "rel_l2": ((got - want).norm() / want.norm()).item()}
+
+
+def check_logits(tag, got, want) -> dict:
+    diff = logits_diff(tag, got, want)
+    max_abs, rel_l2 = diff["max_abs"], diff["rel_l2"]
     if max_abs > PATH_TOL["max_abs"] or rel_l2 > PATH_TOL["rel_l2"]:
         fail(f"{tag}: kernel path logits differ from the plain path: max "
              f"abs {max_abs}, rel l2 {rel_l2} (limits {PATH_TOL})")
-    return {"max_abs": max_abs, "rel_l2": rel_l2}
+    return diff
 
 
 def timed(fn):
@@ -937,7 +1369,7 @@ def main() -> int:
     from repro_torch.core import comm
     from repro_torch.data import make_pipeline
     from repro_torch.kernels import build, densify as D, quantize as Q
-    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention as FA, ssd as K
     from repro_torch.launch import train
     from repro_torch.models import build_model
 
@@ -955,6 +1387,9 @@ def main() -> int:
     kern = clock("kernel", phase_kernel, D, tokens)
     qkern = clock("quantize_kernel", phase_quantize_kernel, Q)
     akern = clock("attn_kernel", phase_attn_kernel, FA)
+    torch.cuda.empty_cache()
+    skern = clock("ssd_kernel", phase_ssd_kernel, K)
+    torch.cuda.empty_cache()
     path = clock("path", phase_path, train, D, comm)
     codec = clock("codec", phase_codec_path, train, D, Q, comm, path)
     torch.cuda.empty_cache()
@@ -964,8 +1399,19 @@ def main() -> int:
     trans = clock("translate", phase_translate, model, params, FA)
     clock("serve", phase_serve, model, params, FA)
     del params
+    torch.cuda.empty_cache()
+    hybrid = build_model(get_config("zamba2-7b"))
+    params = clock("hybrid_init", phase_hybrid_init, hybrid)
+    hpre = clock("hybrid_prefill", phase_hybrid_prefill, hybrid, params, K,
+                 FA)
+    clock("hybrid_decode", phase_hybrid_decode, hybrid, params, K, FA)
+    clock("hybrid_serve", phase_hybrid_serve, hybrid, params, K, FA)
+    clock("hybrid_f32", phase_hybrid_f32, hybrid, params, K, FA)
+    del params
+    torch.cuda.empty_cache()
     clock("small", phase_small_reference, train)
     clock("small_forward", phase_small_forward)
+    clock("small_hybrid", phase_small_hybrid, K)
     print(json.dumps({"kernels": [{
         "name": "densify", "route": "cuda",
         "source": "src/repro_torch/csrc/densify.cu",
@@ -986,13 +1432,22 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": prefill["launches"] + trans["launches"],
+        "launches": prefill["launches"] + trans["launches"]
+        + hpre["flash_launches_per_forward"],
         "max_abs_err": akern["max_abs_err"],
         "ms": akern["prefill_self"]["kernel_ms"],
         "plain_ms": akern["prefill_self"]["plain_ms"],
         "bound_ms": akern["prefill_self"]["bound_ms"],
         "bound_by": akern["prefill_self"]["bound_by"],
-        "library_ms": akern["prefill_self"]["library_ms"]}]}))
+        "library_ms": akern["prefill_self"]["library_ms"]}, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:32",
+        "launches": hpre["ssd_launches_per_forward"],
+        "max_abs_err": skern["max_abs_err"],
+        "ms": skern["kernel_ms"], "plain_ms": skern["plain_ms"],
+        "bound_ms": skern["bound_ms"], "bound_by": skern["bound_by"],
+        "library_ms": skern["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

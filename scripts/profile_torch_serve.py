@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of the port's forward and serving path goes, on one card.
 
-    python3 scripts/profile_torch_serve.py [--prefill-len 32768]
-        [--requests 8] [--prefix 16] [--out profile_torch_serve.json]
+    python3 scripts/profile_torch_serve.py [--arch transformer-big]
+        [--prefill-len 32768] [--requests 8] [--prefix 16]
+        [--out profile_torch_serve.json]
 
-Full-width transformer-big in bf16, random weights from seed 0, 256
-encoder states a sequence from the data pipeline's stub, as
-``chip_smoke.py`` drives it.  After a warm-up, each of two steps runs
-once under ``torch.profiler``:
+Full-width ``--arch`` (transformer-big or zamba2-7b) in bf16, random
+weights from seed 0; for transformer-big, 256 encoder states a sequence
+from the data pipeline's stub, as ``chip_smoke.py`` drives it.  After a
+warm-up, each of two steps runs once under ``torch.profiler``:
 
   * prefill — ``forward(attn_impl="kernel")`` and ``head`` on the last
     position over one sequence of ``--prefill-len`` tokens;
   * decode  — the ``decode_step(enc=..., attn_impl="kernel")`` for
     ``--requests`` sequences that follows a ``--prefix``-token prefill
-    and one warm-up step (a cache of ``--prefix`` + 4 slots).
+    and one warm-up step (a cache of ``--prefix`` + 4 slots; zamba2-7b
+    has no encoder states).
 
 For each: the mean wall time of 5 runs without the profiler; one run
 under the profiler with CPU and CUDA activity for the device time by
@@ -93,6 +95,8 @@ def profiled(fn) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="transformer-big",
+                    choices=("transformer-big", "zamba2-7b"))
     ap.add_argument("--prefill-len", type=int, default=32768)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prefix", type=int, default=16)
@@ -101,10 +105,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("transformer-big")
+    cfg = get_config(a.arch)
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
-    out = {"card": subprocess.run(
+    out = {"arch": a.arch, "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()}
@@ -121,7 +125,8 @@ def main(argv=None) -> int:
 
         b = make_pipeline(cfg, a.requests, a.prefix).batch_at(1)
         prefix = torch.from_numpy(b["tokens"]).cuda()
-        enc = torch.from_numpy(b["frontend"]).cuda()
+        enc = (torch.from_numpy(b["frontend"]).cuda() if "frontend" in b
+               else None)
         cache_len = a.prefix + 4
         cache = model.init_cache(a.requests, cache_len, device="cuda")
         logits, cache = model.prefill(params, cache, prefix, enc=enc,

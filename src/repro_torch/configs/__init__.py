@@ -1,2 +1,2 @@
 from repro_torch.configs.base import (ARCH_IDS, ArchConfig, FrontendConfig,
-                                      get_config)
+                                      SSMConfig, get_config)

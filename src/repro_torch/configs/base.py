@@ -2,14 +2,24 @@
 
 Mirrors ``repro.configs.base`` for the fields the ported model path
 reads.  ``reduced()`` derives the CPU test variant exactly as the
-reference does (<=2 layers, d_model<=128, vocab<=512, float32), so both
-packages build the same shapes from the same config.
+reference does (<=2 layers, or 4 with ``attn_every`` 2 for the hybrid
+family; d_model<=128, vocab<=512, float32), so both packages build the
+same shapes from the same config.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int             # N
+    head_dim: int = 64         # P
+    expand: int = 2
+    conv_dim: int = 4
+    chunk: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +32,7 @@ class FrontendConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                # this port: audio (enc-dec decoder)
+    family: str                # this port: audio (enc-dec) | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,7 +47,8 @@ class ArchConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     sliding_window: Optional[int] = None
-    attn_every: Optional[int] = None
+    attn_every: Optional[int] = None       # hybrid: shared attn block period
+    ssm: Optional[SSMConfig] = None
     frontend: Optional[FrontendConfig] = None
 
     @property
@@ -64,12 +75,15 @@ class ArchConfig:
             dtype="float32",
             attn_every=2 if self.attn_every is not None else None,
         )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, state_dim=16,
+                                            head_dim=16, chunk=32)
         if self.frontend is not None:
             kw["frontend"] = dataclasses.replace(self.frontend, n_embeds=16)
         return self.with_(**kw)
 
 
-ARCH_IDS = ("transformer-big",)
+ARCH_IDS = ("zamba2-7b", "transformer-big")
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -45,11 +45,13 @@ class DistributedOptimizer:
     def exchange_config(self) -> ExchangeConfig:
         return self._exchange_config
 
-    def init_exchange_state(self, grads, device="cpu") -> ExchangeState:
+    def init_exchange_state(self, grads, device=None) -> ExchangeState:
         """Initial codec state for this gradient-tree structure: zero
-        residuals on ``device`` (the empty state for stateless codecs).
-        ``grads`` may hold ``meta`` tensors: only the plan is read."""
-        return self.plan(grads).init_state(device=device)
+        residuals (the empty state for stateless codecs) on ``device``,
+        by default the device of the gradient leaves.  ``grads`` may hold
+        ``meta`` tensors, and then ``device`` must be given: a
+        ``ValueError`` says so."""
+        return self.plan(grads).init_state(device=device, grads=grads)
 
     def plan(self, grads) -> exchange.ExchangePlan:
         """The (cached) static schedule for this gradient tree."""

@@ -333,10 +333,13 @@ class ExchangePlan:
                    for i in self.dense_leaf_ids)
 
     # -- codec state ---------------------------------------------------------
-    def init_state(self, device="cpu") -> ExchangeState:
-        """Initial codec state on ``device``: one entry per schedule
-        stage (``()`` for zero-state codecs), sized for this worker."""
-        return self.config.codec_obj.init_state(self, device=device)
+    def init_state(self, device=None, grads=None) -> ExchangeState:
+        """Initial codec state: one entry per schedule stage (``()`` for
+        zero-state codecs), sized for this worker, on ``device`` or, when
+        it is None, on the device of ``grads``' leaves (see
+        ``state_device``)."""
+        return self.config.codec_obj.init_state(
+            self, device=state_device(device, grads))
 
     def stage_n_elems(self, stage: BucketStage) -> int:
         """Per-worker element count of one stage's payload — the size
@@ -356,9 +359,9 @@ class ExchangePlan:
         """Total per-worker codec-state memory (0 for stateless)."""
         return sum(self.state_bytes_per_stage())
 
-    def _check_state(self, state) -> ExchangeState:
-        """``state``, or the empty state of a stateless codec for
-        ``None``."""
+    def _check_state(self, state, grads=None) -> ExchangeState:
+        """``state``, or the empty state of a stateless codec (on the
+        device of ``grads``) for ``None``."""
         codec = self.config.codec_obj
         if state is None:
             if codec.stateful:
@@ -366,7 +369,7 @@ class ExchangePlan:
                     f"codec {codec.name!r} is stateful: pass "
                     f"state=plan.init_state() and thread the returned "
                     f"state into the next step")
-            return self.init_state()
+            return self.init_state(grads=grads)
         if not isinstance(state, ExchangeState):
             raise TypeError(f"state must be an ExchangeState, got "
                             f"{type(state).__name__}")
@@ -518,7 +521,7 @@ class ExchangePlan:
         runs).  Returns ``(tree, new ExchangeState)``; ``state`` may be
         left out for a stateless codec.  Error-feedback residuals are
         updated in place."""
-        state = self._check_state(state)
+        state = self._check_state(state, grads)
         raw = self._flatten_checked(grads)
         p = comm.axis_size(group)
         inv_scale = (1.0 / p) if average and group is not None else None
@@ -541,6 +544,35 @@ class ExchangePlan:
 
 _PLAN_CACHE: Dict[Any, ExchangePlan] = {}
 _PLAN_CACHE_MAX = 256      # specs include sparse row counts, which vary
+
+
+def _leaf_tensors(leaf):
+    if isinstance(leaf, list):
+        for c in leaf:
+            yield from _leaf_tensors(c)
+    elif isinstance(leaf, IndexedSlices):
+        yield leaf.values
+    elif isinstance(leaf, torch.Tensor):
+        yield leaf
+
+
+def state_device(device, grads) -> torch.device:
+    """Where codec state lives: ``device`` if given, else the device of
+    the gradient leaves.  Raises ``ValueError`` when neither names a real
+    device (no ``device`` and no leaves, leaves on several devices, or
+    leaves on ``meta``): nothing falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    leaves = tree_flatten(grads)[0] if grads is not None else []
+    found = {t.device for leaf in leaves for t in _leaf_tensors(leaf)}
+    if len(found) != 1:
+        raise ValueError(f"codec state: pass device= (the gradient leaves "
+                         f"are on {sorted(map(str, found)) or 'no device'})")
+    (dev,) = found
+    if dev.type == "meta":
+        raise ValueError("codec state: the gradient leaves are on meta; "
+                         "pass device= for the state")
+    return dev
 
 
 def _contrib_specs(leaves) -> Tuple[Tuple[LeafSpec, ...], ...]:

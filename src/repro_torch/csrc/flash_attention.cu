@@ -9,6 +9,9 @@
 // f32 with masked probabilities forced to 0; out = acc / max(l, 1e-30) in
 // q's dtype, so a fully masked row comes out 0.
 //
+// Head dims 16, 32, 48, 64, 112 (zamba2-7b: 3584 / 32; 7 x 16 fits the
+// m16n8k16 tiles and a 224-byte row keeps 16-byte loads aligned) and 128.
+//
 // Layout: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), read through their
 // strides (the head dim contiguous), no transposed or padded copies; query
 // head h reads kv head h / (H / Hkv).  The ragged query and key edges are
@@ -293,8 +296,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// D <= 64 fits four blocks an SM in 128 registers a thread; D = 128 needs
-// more registers than that and runs faster uncapped.
+// D <= 64 fits four blocks an SM in 128 registers a thread; D = 112 and
+// D = 128 need more registers than that and run uncapped.
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
     flash_mma(Args a) {
@@ -525,6 +528,7 @@ extern "C" int repro_flash_attention(
     case 32: err = launch<32>(a, q_bf16, kv_bf16, s); break;
     case 48: err = launch<48>(a, q_bf16, kv_bf16, s); break;
     case 64: err = launch<64>(a, q_bf16, kv_bf16, s); break;
+    case 112: err = launch<112>(a, q_bf16, kv_bf16, s); break;
     case 128: err = launch<128>(a, q_bf16, kv_bf16, s); break;
     default: err = cudaErrorInvalidValue;
   }

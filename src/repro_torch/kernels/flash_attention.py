@@ -38,7 +38,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 48, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 112, 128)
 NO_WINDOW = 2 ** 31 - 1           # "no window": q_pos - k_pos is always less
 _DTYPES = (torch.float32, torch.bfloat16)
 

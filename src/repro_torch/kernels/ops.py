@@ -20,6 +20,16 @@ named after what it runs; each maps to one ``impl`` of
   ========== ================ ==========================================
 
 The models' ``attn_impl`` arguments take the same names.
+
+``ssd`` (the Mamba2 chunked scan) likewise:
+
+  ========== ================ ==========================================
+  port impl  reference impl   what it runs
+  ========== ================ ==========================================
+  "ref"      "xla"            the sequential recurrence (``ref.ssd_ref``,
+                              tests only)
+  "kernel"   "pallas"         the SSD kernel (forward only)
+  ========== ================ ==========================================
 """
 from __future__ import annotations
 
@@ -33,8 +43,10 @@ from repro_torch.kernels.densify import densify_kernel, densify_plain
 from repro_torch.kernels.flash_attention import (
     NEG_INF, flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.quantize import quantize_kernel, quantize_plain
+from repro_torch.kernels.ssd import ssd_kernel, ssd_plain
 
 ATTN_IMPLS = ("ref", "chunked", "kernel")
+SSD_IMPLS = ("ref", "kernel")
 
 
 def densify(indices: torch.Tensor, values: torch.Tensor,
@@ -158,3 +170,50 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ssd (Mamba2 chunked scan)
+# ---------------------------------------------------------------------------
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor, chunk: int = 64,
+        impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan over heads with shared B/C.
+
+    x (B, S, H, P), dt (B, S, H), a (H,), b/c (B, S, N); S is padded to
+    a multiple of ``chunk`` (zero dt: the padding leaves the state as it
+    is).  Returns (y (B, S, H, P) f32, final state (B, H, N, P) f32).
+    ``impl`` as in the module docstring.  Under ``"kernel"`` a CUDA
+    tensor launches the kernel (or raises) and a CPU tensor takes
+    ``ssd_plain``; inputs that require grad raise, as the kernel has no
+    backward (nor has the reference's)."""
+    if impl not in SSD_IMPLS:
+        raise ValueError(f"ssd: impl {impl!r} not in {SSD_IMPLS}")
+    bb, s, h, p = x.shape
+    n = b.shape[-1]
+    if impl == "ref":
+        xf = x.permute(0, 2, 1, 3).reshape(bb * h, s, p)
+        dtf = dt.permute(0, 2, 1).reshape(bb * h, s)
+        bf = b[:, None].expand(bb, h, s, n).reshape(bb * h, s, n)
+        cf = c[:, None].expand(bb, h, s, n).reshape(bb * h, s, n)
+        y, state = ref.ssd_ref(xf, dtf, a.repeat(bb), bf, cf)
+        return (y.reshape(bb, h, s, p).permute(0, 2, 1, 3),
+                state.reshape(bb, h, n, p))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, a, b, c)):
+        raise RuntimeError("ssd: the kernel has no backward (nor has the "
+                           "reference's)")
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    if x.device.type == "cuda":
+        y, state = ssd_kernel(x, dt, a, b, c, chunk)
+    elif x.device.type == "cpu":
+        y, state = ssd_plain(x, dt, a, b, c, chunk)
+    else:
+        raise ValueError(f"ssd: unsupported device {x.device}")
+    return y[:, :s], state

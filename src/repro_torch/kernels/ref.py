@@ -46,3 +46,26 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
     return torch.einsum("bhqk,bkhd->bqhd", p,
                         v.to(torch.float32)).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential-recurrence SSD oracle (exact, O(S) Python steps: tests
+    only).  x (BH, S, P), dt (BH, S), a (BH,), b/c (BH, S, N).  Returns
+    (y (BH, S, P), final state (BH, N, P)), both f32."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    f32 = torch.float32
+    x, dt, b, c = (t.to(f32) for t in (x, dt, b, c))
+    a = a.to(f32)
+    state = torch.zeros((bh, n, p), dtype=f32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * a)[:, None, None]
+        state = decay * state + (dt[:, t, None] * b[:, t])[..., None] \
+            * x[:, t, None, :]
+        ys.append(torch.einsum("bn,bnp->bp", c[:, t], state))
+    y = torch.stack(ys, 1) if ys else torch.zeros((bh, 0, p), dtype=f32,
+                                                  device=x.device)
+    return y, state

@@ -147,6 +147,11 @@ def run(argv=None, log: Optional[Callable[[str], None]] = None
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family != "audio":
+        raise ValueError(f"--arch {args.arch}: the port trains the audio "
+                         f"(enc-dec) family only; {cfg.family} training "
+                         f"waits for a later slice (the SSD kernel has no "
+                         f"backward)")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

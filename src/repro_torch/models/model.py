@@ -1,10 +1,14 @@
-"""Model assembly for the ported family: ``audio`` (enc-dec decoder with
-cross-attention to encoder-state embeddings; the paper's transformer-big).
+"""Model assembly for the ported families (``repro.models.model``):
+
+  audio   enc-dec decoder with cross-attention to encoder-state
+          embeddings (the paper's transformer-big)
+  hybrid  Zamba2: a Mamba2 stack with ONE shared attention block applied
+          after every ``attn_every`` Mamba2 blocks (forward and serving;
+          training waits for a backward of the SSD scan)
 
 Training runs ``loss``/``forward``; the prefill step runs ``forward``
 and ``head`` on the last position; serving runs ``init_cache``,
-``prefill`` and ``decode_step`` (``repro.models.model``'s serving API for
-the attention families).
+``prefill`` and ``decode_step`` (``repro.models.model``'s serving API).
 
 Parameters are one nested dict whose per-layer leaves are stacked on a
 leading ``n_layers`` axis, the reference's layout (``repro.models.model``),
@@ -23,7 +27,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.models import ssm as S
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+FAMILIES = ("audio", "hybrid")
 
 Params = Dict[str, Any]
 
@@ -70,43 +77,68 @@ def _unstack(stacked: Params):
             for i in range(len(cols[0]))]
 
 
+def _to(tree, device) -> Params:
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [t.to(device) for t in leaves])
+
+
+def _stacked(n: int, draw, device) -> Params:
+    """``n`` layers from ``draw()`` (one layer's tree, drawn on the host)
+    stacked on a leading axis of tensors allocated once on ``device``,
+    each layer copied into its slot before the next is drawn."""
+    leaves, treedef = tree_flatten(draw())
+    out = [torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=device)
+           for t in leaves]
+    for i in range(n):
+        if i:
+            leaves = tree_flatten(draw())[0]
+        for dst, src in zip(out, leaves):
+            dst[i].copy_(src)
+    return tree_unflatten(treedef, out)
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
 
     def __post_init__(self):
-        if self.cfg.family != "audio":
-            raise ValueError(f"the port models the audio (enc-dec) family "
-                             f"only, got {self.cfg.family!r}")
+        if self.cfg.family not in FAMILIES:
+            raise ValueError(f"the port models the {' and '.join(FAMILIES)} "
+                             f"families, got {self.cfg.family!r}")
 
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters with the reference's distributions, drawn on
         the CPU from ``torch.Generator().manual_seed(seed)`` (so a seed
-        gives the same weights on every device) and moved to ``device``:
-        the card unless the caller asks for ``"cpu"``.  ``device="meta"``
-        gives shapes and dtypes only."""
+        gives the same weights on every device) and placed on
+        ``device``: the card unless the caller asks for ``"cpu"``.
+        ``device="meta"`` gives shapes and dtypes only.  Stacked layers
+        are drawn one layer at a time straight into their slot on
+        ``device``, so the host never holds more than one layer."""
         device = torch.device(device)
-        if device.type == "meta":
-            return self._init(None, device)
-        params = self._init(torch.Generator().manual_seed(seed), "cpu")
-        return tree_map(lambda p: p.to(device), params)
+        gen = (None if device.type == "meta"
+               else torch.Generator().manual_seed(seed))
+        return self._init(gen, device)
 
     def _init(self, gen: Optional[torch.Generator], device) -> Params:
         cfg = self.cfg
         dt = L._dtype(cfg)
+        host = "meta" if gen is None else "cpu"
         params: Params = {
             "embedding": L.init_embedding(gen, cfg.vocab, cfg.d_model, dt,
-                                          device),
+                                          host).to(device),
             "final_norm": L.init_rmsnorm(cfg.d_model, dt, device),
         }
         if not cfg.tied_embeddings:
             params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab),
-                                             device, dtype=dt)
-        blocks = [_init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
-        _, treedef = tree_flatten(blocks[0])
-        cols = zip(*(tree_flatten(b)[0] for b in blocks))
-        params["layers"] = tree_unflatten(treedef,
-                                          [torch.stack(c) for c in cols])
+                                             host, dtype=dt).to(device)
+        if cfg.family == "hybrid":
+            params["mamba"] = _stacked(
+                cfg.n_layers, lambda: S.init_mamba2(gen, cfg, host), device)
+            params["shared_attn"] = _to(_init_block(gen, cfg, host),
+                                        device)            # ONE shared
+        else:
+            params["layers"] = _stacked(
+                cfg.n_layers, lambda: _init_block(gen, cfg, host), device)
         return params
 
     def head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -121,17 +153,45 @@ class Model:
         """Final hidden states (B, S, d) at the token positions.
         ``attn_impl`` as in ``repro_torch.kernels.ops``: "chunked"
         (training, differentiable), "kernel" (the flash attention kernel,
-        forward only: the prefill step) or "ref"."""
+        forward only: the prefill step) or "ref".  In the hybrid family
+        it also routes the Mamba2 blocks' SSD scan: "kernel" through the
+        SSD kernel, the others through the plain ``ssd_chunked``."""
         cfg = self.cfg
         x = L.embed(params["embedding"], batch["tokens"], tap=taps)
-        enc = None
-        if cfg.frontend is not None:
-            enc = batch["frontend"].to(x.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
-        for lp in _unstack(params["layers"]):
-            x, _ = _block(lp, cfg, x, positions, None, enc, window,
-                          attn_impl)
+        if cfg.family == "hybrid":
+            x = self._hybrid_forward(params, x, positions, window,
+                                     attn_impl)
+        else:
+            enc = None
+            if cfg.frontend is not None:
+                enc = batch["frontend"].to(x.dtype)
+            for lp in _unstack(params["layers"]):
+                x, _ = _block(lp, cfg, x, positions, None, enc, window,
+                              attn_impl)
         return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+    def _segments(self):
+        """Mamba2 layer ids of each segment that ends in the shared
+        block, and the trailing ones after the last segment."""
+        period, n = self.cfg.attn_every, self.cfg.n_layers
+        n_seg = n // period
+        return ([range(i * period, (i + 1) * period) for i in range(n_seg)],
+                range(n_seg * period, n))
+
+    def _hybrid_forward(self, params, x, positions, window, attn_impl):
+        cfg = self.cfg
+        route = "kernel" if attn_impl == "kernel" else "chunked"
+        mamba = _unstack(params["mamba"])
+        segments, trailing = self._segments()
+        for seg in segments:
+            for i in seg:
+                x = x + S.mamba2_forward(mamba[i], cfg, x, ssd_route=route)
+            x, _ = _block(params["shared_attn"], cfg, x, positions, None,
+                          None, window, attn_impl)
+        for i in trailing:
+            x = x + S.mamba2_forward(mamba[i], cfg, x, ssd_route=route)
+        return x
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              taps: Optional[torch.Tensor] = None,
@@ -170,17 +230,30 @@ class Model:
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, cache_len: int, device="cuda") -> Dict:
-        """Zeros KV cache: {"k", "v": (n_layers, B, cache_len, KV, HD)
-        in the model's dtype, "length": (B,) int32}.  ``cache_len`` is
-        the longest sequence (full cache) or the window (ring cache)."""
+        """Zeros cache with "length": (B,) int32.  Audio: {"k", "v":
+        (n_layers, B, cache_len, KV, HD)} in the model's dtype.  Hybrid:
+        "mamba", each Mamba2 block's recurrent cache stacked over
+        n_layers (``ssm.mamba2_init_cache``), and "attn": {"k", "v":
+        (n_segments, B, cache_len, KV, HD)}, one per use of the shared
+        block.  ``cache_len`` is the longest sequence (full cache) or the
+        window (ring cache)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
         dt = L._dtype(cfg)
-        return {"length": torch.zeros((batch,), dtype=torch.int32,
-                                      device=device),
-                "k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        length = torch.zeros((batch,), dtype=torch.int32, device=device)
+        n_kv = cfg.n_layers
+        if cfg.family == "hybrid":
+            n_kv = cfg.n_layers // cfg.attn_every
+        shape = (n_kv, batch, cache_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        kv = {"k": torch.zeros(shape, dtype=dt, device=device),
+              "v": torch.zeros(shape, dtype=dt, device=device)}
+        if cfg.family != "hybrid":
+            return {"length": length, **kv}
+        one = S.mamba2_init_cache(cfg, batch, dt, device)
+        mamba = {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
+                                dtype=v.dtype, device=device)
+                 for k, v in one.items()}
+        return {"length": length, "mamba": mamba, "attn": kv}
 
     def prefill(self, params: Params, cache: Dict, tokens: torch.Tensor,
                 enc: Optional[torch.Tensor] = None,
@@ -218,20 +291,62 @@ class Model:
         s = x.shape[1]
         length = cache["length"]
         positions = length[:, None] + torch.arange(s, device=x.device)
-        ks, vs = [], []
-        for i, lp in enumerate(_unstack(params["layers"])):
-            lc = {"k": cache["k"][i], "v": cache["v"][i], "length": length,
-                  "ring": ring}
-            x, nc = _block(lp, cfg, x, positions, lc, enc, window,
-                           attn_impl)
-            ks.append(nc["k"])
-            vs.append(nc["v"])
+        if cfg.family == "hybrid":
+            x, cache = self._hybrid_decode(params, cache, x, positions, enc,
+                                           window, attn_impl, ring)
+        else:
+            ks, vs = [], []
+            for i, lp in enumerate(_unstack(params["layers"])):
+                lc = {"k": cache["k"][i], "v": cache["v"][i],
+                      "length": length, "ring": ring}
+                x, nc = _block(lp, cfg, x, positions, lc, enc, window,
+                               attn_impl)
+                ks.append(nc["k"])
+                vs.append(nc["v"])
+            cache = {**cache, "k": torch.stack(ks), "v": torch.stack(vs)}
         step = n_valid if n_valid is not None else s
-        cache = {**cache, "k": torch.stack(ks), "v": torch.stack(vs),
-                 "length": (length + step).to(length.dtype)}
+        cache = {**cache, "length": (length + step).to(length.dtype)}
         logits = self.head(params, L.rmsnorm(params["final_norm"], x,
                                              cfg.norm_eps))
         return (logits if s > 1 else logits[:, -1]), cache
+
+    def _hybrid_decode(self, params, cache, x, positions, enc, window,
+                       attn_impl, ring):
+        """One token through the Mamba2 blocks (``mamba2_decode``, the
+        recurrent step) and the cached shared block.  Returns (x, cache
+        with new "mamba" and "attn")."""
+        cfg = self.cfg
+        length = cache["length"]
+        mamba = _unstack(params["mamba"])
+        mcache = _unstack(cache["mamba"])
+        new_m: list = [None] * cfg.n_layers
+        ks, vs = [], []
+        segments, trailing = self._segments()
+        for si, seg in enumerate(segments):
+            for i in seg:
+                y, new_m[i] = S.mamba2_decode(mamba[i], cfg, x, mcache[i])
+                x = x + y
+            ac = {"k": cache["attn"]["k"][si], "v": cache["attn"]["v"][si],
+                  "length": length, "ring": ring}
+            x, nc = _block(params["shared_attn"], cfg, x, positions, ac, enc,
+                           window, attn_impl)
+            ks.append(nc["k"])
+            vs.append(nc["v"])
+        for i in trailing:
+            y, new_m[i] = S.mamba2_decode(mamba[i], cfg, x, mcache[i])
+            x = x + y
+        stacked = {k: torch.stack([m[k] for m in new_m])
+                   for k in cache["mamba"]}
+        return x, {**cache, "mamba": stacked,
+                   "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def _cache_len(cache: Dict) -> int:
+    """The cache's sequence length, from a KV leaf: (L, B, C, ...) or, in
+    the hybrid cache, (n_segments, B, C, KV, HD)."""
+    if "k" in cache:
+        return cache["k"].shape[2]
+    return cache["attn"]["k"].shape[2]
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -73,6 +73,23 @@ def test_kernel_impl_bf16_matches_pallas():
     np.testing.assert_allclose(_np(out), _np(want), **BF16)
 
 
+@pytest.mark.parametrize("dtype,window", [("float32", None),
+                                          ("bfloat16", None),
+                                          ("float32", 8)])
+def test_head_dim_112_matches_pallas(dtype, window):
+    """zamba2-7b's head dim (3584 / 32 = 112), which the kernel takes:
+    the plain version against the Pallas kernel in interpret mode, causal,
+    with and without a window, f32 and bf16."""
+    assert 112 in tflash.HEAD_DIMS
+    (jq, jk, jv), (q, k, v) = _qkv(112, 1, 24, 24, 2, 2, 112, dtype)
+    out = ops.flash_attention(q, k, v, window=window, impl="kernel")
+    want = jops.flash_attention(jq, jk, jv, window=window, impl="pallas",
+                                block_q=8, block_k=8)
+    assert out.dtype == q.dtype and tuple(out.shape) == (1, 24, 2, 112)
+    np.testing.assert_allclose(_np(out), _np(want),
+                               **(F32 if dtype == "float32" else BF16))
+
+
 @pytest.mark.parametrize("causal,window,q_offset,kv_len", [
     (True, None, 5, 20),       # queries aligned past the start, keys padded
     (True, 6, 8, 24),          # sliding window

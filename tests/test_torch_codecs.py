@@ -284,6 +284,34 @@ def test_error_feedback_state_rules():
     torch.testing.assert_close(out["w"], out2["w"], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("codec", ["int8+ef", "int8"])
+def test_exchange_state_defaults_to_the_gradients_device(codec):
+    """With no ``device``, codec state lands on the gradient leaves'
+    device (CPU trees give CPU state, sparse leaves included); leaves on
+    ``meta`` need an explicit device, and nothing falls back to the CPU."""
+    opt = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(
+        codec=codec))
+    tree = {"w": torch.ones(8, 4),
+            "e": TSlices(torch.tensor([0, 3], dtype=torch.int32),
+                         torch.ones(2, 4), (16, 4))}
+    state = opt.init_exchange_state(tree)
+    plan = opt.plan(tree)
+    assert state.n_stages == plan.schedule.n_stages
+    for s in state.bucket_states:
+        assert s == () or s.device.type == "cpu"
+    assert any(s != () for s in state.bucket_states) == (codec == "int8+ef")
+    meta = {"w": torch.empty(8, 4, device="meta"),
+            "e": TSlices(torch.empty(2, dtype=torch.int32, device="meta"),
+                         torch.empty(2, 4, device="meta"), (16, 4))}
+    with pytest.raises(ValueError, match="device="):
+        opt.init_exchange_state(meta)
+    with pytest.raises(ValueError, match="device="):
+        opt.plan(meta).init_state()
+    given = opt.init_exchange_state(meta, device="cpu")
+    assert [getattr(s, "device", None) for s in given.bucket_states] == \
+        [getattr(s, "device", None) for s in state.bucket_states]
+
+
 @pytest.mark.parametrize("name", ["identity+ef", "bf16+ef", "int8+ef"])
 def test_error_feedback_updates_the_residual_in_place(name):
     """The residual tensor is updated in place (one residual per bucket
