@@ -10,9 +10,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
                (one nvcc per source, started together);
   3. kernel  — hold each kernel (densify, quantize) to its plain
                PyTorch version on the card at the training step's shapes
-               and edge cases (quantize bitwise), then time kernel, plain
-               version and one library call where there is one with CUDA
-               events against the least time the card could take;
+               and edge cases (quantize bitwise; densify also bitwise
+               across two launches, with its bitwise equality to the plain
+               version on the CPU and the memory one call allocates
+               reported), then time kernel, plain version and one library
+               call where there is one with CUDA events against the least
+               time the card could take;
      attn_kernel — the same for flash attention: the forward path's three
                shapes (causal 1 x 32768 x 16 x 64, cross 32768 x 256,
                decode cross 8 x 1 x 256), the cases of
@@ -27,6 +30,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
                ``scaled_dot_product_attention`` as the library yardstick;
                and zamba2-7b's head dim 112: causal and window-8192
                (1 x 32768 x 32 x 112, bf16) and small f32 and bf16 cases;
+               every case names the variant that ran, the prefill kernel
+               ("sm90") must take the path's bf16 shapes and its own edge
+               cases (Sq not a multiple of 128, kv_len < Sk, GQA 4, head
+               dim 128, strided views of a packed q/k/v), and on the path's
+               shapes it is timed beside flash_mma ("mma");
      ssd_kernel — the SSD scan kernel against ``ssd_plain`` on the card:
                the cases of tests/test_kernels.py, a ragged S and an
                active clip at 2e-5, the main-path shape (x 1 x 32768 x
@@ -47,9 +55,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   6. prefill — full-width transformer-big's prefill step on one
                32768-token sequence with 256 encoder states:
                ``forward(attn_impl="kernel")`` and ``head`` on the last
-               position, 12 kernel launches a forward (counts reset just
-               before, read just after); logits held against the plain
-               chunked path;
+               position, 12 kernel launches a forward, all 12 on the
+               prefill kernel (counts reset just before, read just after);
+               logits held against the plain chunked path;
   7. translate — 8 requests: ``Model.prefill`` over a 16-token prefix and
                32 greedy ``decode_step``s cross-attending 256 f32 encoder
                states through the kernel, 6 launches a step; every step's
@@ -60,7 +68,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                masking;
   9. hybrid  — full-width zamba2-7b in bf16 (weights from seed 0, init
                time and memory): the prefill step on one 32768-token
-               sequence, 81 SSD and 13 flash attention launches a forward;
+               sequence, 81 SSD and 13 flash attention launches a forward
+               (all 13 on the prefill kernel);
                8 requests of a 16-token prefix and 32 greedy decode steps,
                and ``ServeEngine.generate`` on 8 x 32-token prompts with
                16 new tokens (no launch in either); then the weights cast
@@ -97,8 +106,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # one bf16 ulp (2**-7 relative) on top of the f32 accumulation-order
-# difference: the kernel's atomics sum duplicate rows in a run-dependent
-# order, the plain version in index order
+# difference (set when the kernel's atomics summed duplicate rows in a
+# run-dependent order; the kernel now sums them in index order, as the
+# plain version does on the CPU, and the phase also reports bitwise
+# equality)
 BF16_TOL = dict(rtol=8e-3, atol=1e-5)
 
 
@@ -120,6 +131,24 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of one ``fn()``: the time of the kernels (and memsets)
+    it runs, summed by ``torch.profiler`` over ``iters`` calls; the gaps
+    that host overhead leaves between launches are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages())
+    if total_us <= 0:
+        fail("torch.profiler recorded no device time")
+    return total_us / iters / 1e3
 
 
 class PhaseClock:
@@ -163,9 +192,9 @@ def phase_kernel(D, tokens) -> dict:
 
     def vals(n, dt, width=d):
         # multiples of 2**-6 below 4 in magnitude: exact in bf16, and any
-        # sum of up to 2**13 of them is exact in f32, so the atomics'
-        # run-dependent order cannot move the result and the comparison
-        # checks indexing and arithmetic alone
+        # sum of up to 2**13 of them is exact in f32, so no order of the
+        # sums can move the result and the comparison checks indexing and
+        # arithmetic alone (randn_bf16 below has inexact sums)
         k = torch.randint(-255, 256, (n, width), device=dev, generator=gen)
         return (k.to(torch.float32) / 64).to(dt)
 
@@ -189,25 +218,47 @@ def phase_kernel(D, tokens) -> dict:
          torch.tensor([-1, 0, vocab, vocab + 5, 3, -7, vocab - 1, 0],
                       dtype=torch.int32, device=dev),
          vals(8, torch.bfloat16), vocab, d),
+        ("randn_bf16", tok,
+         torch.randn((tok.numel(), d), device=dev, generator=gen).to(
+             torch.bfloat16), vocab, d),
+        # values 4 bytes off 16-byte alignment: the element-by-element form
+        ("misaligned_f32", tok,
+         vals(1, torch.float32, tok.numel() * d + 1)[0, 1:].view(-1, d),
+         vocab, d),
     ]
     max_err = 0.0
     for name, idx, v, vb, width in cases:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         out = D.densify_kernel(idx, v, (vb, width))
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated() - before
+        again = D.densify_kernel(idx, v, (vb, width))
         torch.cuda.synchronize()
         ref = D.densify_plain(idx, v, (vb, width))
         if out.dtype != v.dtype or tuple(out.shape) != (vb, width):
             fail(f"densify {name}: got {out.dtype} {tuple(out.shape)}")
+        if not torch.equal(out, again):
+            fail(f"densify {name}: two launches on the same inputs differ")
         tol = F32_TOL if v.dtype == torch.float32 else BF16_TOL
         err = (out.float() - ref.float()).abs().max().item()
         if not torch.allclose(out.float(), ref.float(), **tol):
             fail(f"densify {name}: kernel disagrees with plain version "
                  f"(max abs err {err})")
         max_err = max(max_err, err)
+        cpu = D.densify_plain(idx.cpu(), v.cpu(), (vb, width))
         print(json.dumps({"phase": "kernel", "kernel": "densify",
                           "case": name, "n": int(idx.numel()),
                           "vocab": vb, "d": width,
                           "dtype": str(v.dtype).split(".")[-1],
-                          "max_abs_err": err, "tol": tol}))
+                          "max_abs_err": err, "tol": tol,
+                          "bitwise_across_launches": True,
+                          "bitwise_vs_plain_on_cpu": torch.equal(out.cpu(),
+                                                                 cpu),
+                          "memory_growth_bytes": growth,
+                          "output_bytes": out.numel() * out.element_size()}))
+        del out, again, ref, cpu
 
     _, idx, v, vb, width = cases[0]
     n = idx.numel()
@@ -215,21 +266,30 @@ def phase_kernel(D, tokens) -> dict:
     nbytes = vb * width * itemsize + n * width * itemsize + 4 * n
     bound_ms = max(nbytes / HBM_BYTES_PER_S, n * width / F32_FLOPS) * 1e3
     idx64, v32 = idx.long(), v.float()
-    ms = plain_ms = library_ms = None
-    for order in ("kernel", "plain", "plain", "kernel"):
-        if order == "kernel":
-            t = cuda_ms(lambda: D.densify_kernel(idx, v, (vb, width)), 50)
-            ms = t if ms is None else min(ms, t)
-        else:
-            t = cuda_ms(lambda: D.densify_plain(idx, v, (vb, width)), 20)
-            plain_ms = t if plain_ms is None else min(plain_ms, t)
-    library_ms = cuda_ms(
-        lambda: torch.zeros((vb, width), dtype=torch.float32,
-                            device=dev).index_add_(0, idx64, v32), 50)
+    # Two measures, kernel, plain, plain, kernel, best of two turns: the
+    # device time of a call's kernels (the profiler's sum; ``ms`` in the
+    # kernels line), and CUDA events around back-to-back calls, which
+    # also count the gaps the host leaves (the Python, ctypes and
+    # launches of a kernel call take about as long as its kernels).
+    fns = {"kernel": lambda: D.densify_kernel(idx, v, (vb, width)),
+           "plain": lambda: D.densify_plain(idx, v, (vb, width)),
+           "library": lambda: torch.zeros(
+               (vb, width), dtype=torch.float32, device=dev).index_add_(
+                   0, idx64, v32)}
+    dev_t, events_t = {}, {}
+    for order in ("kernel", "plain", "library", "library", "plain",
+                  "kernel"):
+        t = device_ms(fns[order], 50)
+        dev_t[order] = min(dev_t.get(order, t), t)
+        t = cuda_ms(fns[order], 50)
+        events_t[order] = min(events_t.get(order, t), t)
+    ms, plain_ms, library_ms = dev_t["kernel"], dev_t["plain"], \
+        dev_t["library"]
     timing = {"phase": "kernel_timing", "kernel": "densify",
               "shape": {"n": n, "vocab": vb, "d": width, "dtype": "bf16"},
               "kernel_ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms,
+              "library_ms": library_ms, "measure": "device time a call",
+              "back_to_back_ms": events_t,
               "library_call": "torch.zeros(vocab, d, float32).index_add_",
               "bound_ms": bound_ms, "bound_by": "bytes",
               "bound_bytes": nbytes}
@@ -612,6 +672,14 @@ def phase_attn_kernel(FA) -> dict:
         for dt in (f32, bf):
             cases.append((f"case{i}_{str(dt)[6:]}",) + c + (dt, dt))
             small.add(cases[-1][0])
+    # the prefill kernel's edges: Sq not a multiple of its 128-row tile,
+    # GQA with H / Hkv = 4, head dim 128, a ragged non-causal cross
+    cases += [("sm90_ragged_sq", 2, 1000, 1000, 4, 4, 64, None, True, bf, bf),
+              ("sm90_gqa4_d112", 1, 2048, 2048, 32, 8, 112, None, True, bf,
+               bf),
+              ("sm90_d128", 2, 384, 384, 4, 2, 128, None, True, bf, bf),
+              ("sm90_cross_ragged", 2, 700, 300, 4, 4, 112, None, False, bf,
+               bf)]
     for dt in (f32, bf):
         cases += [(f"causal_sq_gt_sk_{str(dt)[6:]}", 2, 40, 24, 4, 2, 64,
                    None, True, dt, dt),
@@ -621,16 +689,21 @@ def phase_attn_kernel(FA) -> dict:
                    False, dt, f32)]
     max_err = 0.0
     tensors = {}
+    want_sm90 = {"prefill_self", "prefill_cross", "hybrid_self",
+                 "hybrid_window"}
     for name, b, sq, sk, h, hkv, d, window, causal, qdt, kvdt in cases:
         q = _randn((b, sq, h, d), qdt, gen)
         k = _randn((b, sk, hkv, d), kvdt, gen)
         v = _randn((b, sk, hkv, d), kvdt, gen)
+        variant = attn_variant(FA, name, q, k, v,
+                               name in want_sm90 or name.startswith("sm90"))
         out = FA.flash_attention_kernel(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
         errs = check_attn(name, out, ref, qdt, scaled=name not in small)
         max_err = max(max_err, errs["max_abs_err"])
         print(json.dumps({"phase": "attn_kernel", "case": name,
+                          "variant": variant,
                           "shape": [b, sq, sk, h, hkv, d], "window": window,
                           "causal": causal, "q_dtype": str(qdt)[6:],
                           "kv_dtype": str(kvdt)[6:], **errs}))
@@ -644,6 +717,12 @@ def phase_attn_kernel(FA) -> dict:
     packed = _randn((2, 48, 3, 4, 64), bf, gen)
     flat = _randn((2 * 56 * 2 * 64 + 1,), bf, gen)
     odd = flat[1:].view(2, 56, 2, 64)
+    # the prefill kernel: kv_len < Sk with a q_offset, and q, k, v as
+    # strided views of one packed (B, S, 3, H, D) projection
+    q2 = _randn((1, 1500, 8, 112), bf, gen)
+    k2 = _randn((1, 2000, 8, 112), bf, gen)
+    v2 = _randn((1, 2000, 8, 112), bf, gen)
+    qkv = _randn((2, 1100, 3, 8, 64), bf, gen)
     extra = [
         ("q_offset_kv_len", (q, k, v), dict(causal=True, q_offset=3,
                                             kv_len=40, scale=0.2)),
@@ -651,15 +730,22 @@ def phase_attn_kernel(FA) -> dict:
                                           kv_len=50)),
         ("strided_q", (packed[:, :, 1], k, v), dict(causal=True)),
         ("misaligned_kv", (q, odd, odd), dict(causal=False)),
+        ("sm90_kv_len", (q2, k2, v2), dict(causal=True, kv_len=1700,
+                                           q_offset=300)),
+        ("sm90_window_kv_len", (q2, k2, v2), dict(causal=True, window=333,
+                                                  kv_len=1900)),
+        ("sm90_packed_qkv", (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]),
+         dict(causal=True)),
     ]
     for name, args, kw in extra:
+        variant = attn_variant(FA, name, *args, name.startswith("sm90"))
         out = FA.flash_attention_kernel(*args, **kw)
         torch.cuda.synchronize()
         errs = check_attn(name, out, FA.flash_attention_plain(*args, **kw),
                           bf, scaled=True)
         max_err = max(max_err, errs["max_abs_err"])
-        print(json.dumps({"phase": "attn_kernel", "case": name, "args": kw,
-                          **errs}))
+        print(json.dumps({"phase": "attn_kernel", "case": name,
+                          "variant": variant, "args": kw, **errs}))
     # the kernel takes Dv == D only; the public wrapper does not reroute
     from repro_torch.kernels import ops
     try:
@@ -673,16 +759,24 @@ def phase_attn_kernel(FA) -> dict:
         bound_ms, bound_by, flops, nbytes = attn_bound(q, k, causal, window)
         kw = dict(causal=causal, window=window)
         one_row = q.shape[1] == 1
-        ms = plain_ms = None
-        for order in ("kernel", "plain", "plain", "kernel"):
-            if order == "kernel":
-                t = cuda_ms_cold(lambda: FA.flash_attention_kernel(
-                    q, k, v, **kw), 50 if one_row else 10)
-                ms = t if ms is None else min(ms, t)
-            else:
+        variant = FA._variant(q, k, v)
+        # the variant the path runs, and on the prefill kernel's inputs
+        # also flash_mma, its predecessor, in turns with the plain version
+        runs = {"kernel": dict(kw), "plain": None}
+        if variant == "sm90":
+            runs["mma"] = dict(kw, _override="mma")
+        times = {}
+        for order in ("kernel", "mma", "plain", "plain", "mma", "kernel"):
+            if order not in runs:
+                continue
+            if order == "plain":
                 t = cuda_ms_cold(lambda: FA.flash_attention_plain(
                     q, k, v, **kw), 20 if one_row else 2)
-                plain_ms = t if plain_ms is None else min(plain_ms, t)
+            else:
+                t = cuda_ms_cold(lambda: FA.flash_attention_kernel(
+                    q, k, v, **runs[order]), 50 if one_row else 10)
+            times[order] = min(times.get(order, t), t)
+        ms, plain_ms = times["kernel"], times["plain"]
         library_ms = None
         if q.dtype == k.dtype:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -690,10 +784,11 @@ def phase_attn_kernel(FA) -> dict:
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal), 10)
         timing_line = {
-            "phase": "attn_timing", "shape": name,
+            "phase": "attn_timing", "shape": name, "variant": variant,
             "q": list(q.shape), "kv": list(k.shape),
             "q_dtype": str(q.dtype)[6:], "kv_dtype": str(k.dtype)[6:],
-            "causal": causal, "kernel_ms": ms, "plain_ms": plain_ms,
+            "causal": causal, "kernel_ms": ms,
+            "mma_ms": times.get("mma"), "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library_call": ("torch.nn.functional.scaled_dot_product_attention"
                              if library_ms is not None else
@@ -705,6 +800,16 @@ def phase_attn_kernel(FA) -> dict:
         print(json.dumps(timing_line))
         result[name] = timing_line
     return result
+
+
+def attn_variant(FA, name, q, k, v, want_sm90: bool) -> str:
+    """The variant the wrapper picks for these inputs; fails where a case
+    meant for the prefill kernel would not reach it."""
+    variant = FA._variant(q, k, v)
+    if want_sm90 and variant != "sm90":
+        fail(f"flash attention {name}: the wrapper picks {variant!r}, not "
+             f"the prefill kernel")
+    return variant
 
 
 def check_attn(name, out, ref, qdt, scaled: bool) -> dict:
@@ -950,14 +1055,18 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
         runs = []
         for _ in range(3):
             K.ssd_kernel.launches = 0
-            FA.flash_attention_kernel.launches = 0
+            FA.reset_launches()
             logits, ms = timed(lambda: prefill_step(tokens, "kernel"))
             ssd_n = K.ssd_kernel.launches
             fa_n = FA.flash_attention_kernel.launches
+            by_variant = dict(FA.flash_attention_kernel.launches_by_variant)
             if ssd_n != want_ssd or fa_n != want_fa:
                 fail(f"hybrid prefill: {ssd_n} SSD and {fa_n} flash "
                      f"attention launches in one forward (want {want_ssd} "
                      f"and {want_fa})")
+            if by_variant != {"sm90": want_fa, "mma": 0, "simt": 0}:
+                fail(f"hybrid prefill: flash attention launches by variant "
+                     f"{by_variant} (want all {want_fa} on sm90)")
             runs.append(ms)
         peak = torch.cuda.max_memory_allocated()
         if tuple(logits.shape) != (1, cfg.vocab) \
@@ -972,7 +1081,8 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
     ms = statistics.median(runs)
     line = {"phase": "hybrid_prefill", "tokens": PREFILL_LEN,
             "ssd_launches_per_forward": ssd_n,
-            "flash_launches_per_forward": fa_n, "ms_runs": runs,
+            "flash_launches_per_forward": fa_n,
+            "flash_launches_by_variant": by_variant, "ms_runs": runs,
             "ms_median": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
             "check_tokens": HYBRID_CHECK_LEN,
             "kernel_ms_check_len": short_ms,
@@ -1003,7 +1113,7 @@ def phase_hybrid_f32(model, params, K, FA) -> dict:
 
     with torch.no_grad():
         K.ssd_kernel.launches = 0
-        FA.flash_attention_kernel.launches = 0
+        FA.reset_launches()
         got, ms = timed(lambda: prefill_step("kernel"))
         launches = (K.ssd_kernel.launches, FA.flash_attention_kernel.launches)
         if launches != (model.cfg.n_layers,
@@ -1035,7 +1145,7 @@ def phase_hybrid_decode(model, params, K, FA) -> dict:
         cfg, HYBRID_B, HYBRID_PREFIX).batch_at(1)["tokens"]).cuda()
     with torch.no_grad():
         K.ssd_kernel.launches = 0
-        FA.flash_attention_kernel.launches = 0
+        FA.reset_launches()
         cache = model.init_cache(HYBRID_B, HYBRID_PREFIX + HYBRID_NEW,
                                  device="cuda")
         (logits, cache), pre_ms = timed(
@@ -1078,7 +1188,7 @@ def phase_hybrid_serve(model, params, K, FA) -> dict:
     cache_len = HSERVE_PROMPT + HSERVE_NEW + 1
     probe = ServeEngine(model, params, cache_len=cache_len, eos_id=-1)
     K.ssd_kernel.launches = 0
-    FA.flash_attention_kernel.launches = 0
+    FA.reset_launches()
     out, ms = timed(lambda: probe.generate(prompts, max_new=HSERVE_NEW))
     launches = K.ssd_kernel.launches + FA.flash_attention_kernel.launches
     if out.shape != (HSERVE_B, HSERVE_NEW) or out.dtype != np.int32 \
@@ -1192,19 +1302,24 @@ def phase_prefill(model, params, FA) -> dict:
         prefill_step("kernel")                     # warm-up
         runs = []
         for _ in range(3):
-            FA.flash_attention_kernel.launches = 0
+            FA.reset_launches()
             logits, ms = timed(lambda: prefill_step("kernel"))
             launches = FA.flash_attention_kernel.launches
+            by_variant = dict(FA.flash_attention_kernel.launches_by_variant)
             if launches != want:
                 fail(f"prefill: flash attention launched {launches} times "
                      f"in one forward (want {want})")
+            if by_variant != {"sm90": want, "mma": 0, "simt": 0}:
+                fail(f"prefill: flash attention launches by variant "
+                     f"{by_variant} (want all {want} on sm90)")
             runs.append(ms)
         torch.cuda.empty_cache()
         plain, plain_ms = timed(lambda: prefill_step("chunked"))
     diff = check_logits("prefill", logits, plain)
     ms = statistics.median(runs)
     line = {"phase": "prefill", "tokens": PREFILL_LEN, "enc": N_ENC,
-            "launches_per_forward": launches, "ms_runs": runs,
+            "launches_per_forward": launches,
+            "launches_by_variant": by_variant, "ms_runs": runs,
             "ms_median": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
             "plain_chunked_ms": plain_ms, "logits_vs_plain": diff,
             "tol": PATH_TOL,
@@ -1250,11 +1365,12 @@ def phase_translate(model, params, FA) -> dict:
     enc = torch.from_numpy(batch["frontend"]).cuda()
     cache_len = TRANSLATE_PREFIX + TRANSLATE_NEW
     with torch.no_grad():
-        FA.flash_attention_kernel.launches = 0
+        FA.reset_launches()
         logits, toks, pre_ms, step_ms = translate(
             model, params, prefix, enc, "kernel", cache_len, TRANSLATE_NEW)
         torch.cuda.synchronize()
         launches = FA.flash_attention_kernel.launches
+        by_variant = dict(FA.flash_attention_kernel.launches_by_variant)
         want = model.cfg.n_layers * (TRANSLATE_PREFIX + TRANSLATE_NEW)
         if launches != want:
             fail(f"translate: flash attention launched {launches} times "
@@ -1269,8 +1385,8 @@ def phase_translate(model, params, FA) -> dict:
     line = {"phase": "translate", "requests": TRANSLATE_B,
             "enc": N_ENC, "enc_dtype": "float32",
             "prefix": TRANSLATE_PREFIX, "new_tokens": TRANSLATE_NEW,
-            "launches": launches, "prefill_ms": pre_ms,
-            "decode_ms_per_step": step_ms,
+            "launches": launches, "launches_by_variant": by_variant,
+            "prefill_ms": pre_ms, "decode_ms_per_step": step_ms,
             "tok_per_s": TRANSLATE_B / step_ms * 1e3,
             "plain_prefill_ms": plain_pre_ms,
             "plain_decode_ms_per_step": plain_step_ms,
@@ -1291,7 +1407,7 @@ def phase_serve(model, params, FA) -> dict:
     cache_len = SERVE_PROMPT + SERVE_NEW + 1
     probe = ServeEngine(model, params, cache_len=cache_len, eos_id=-1)
     probe.generate(prompts[:, :4], max_new=2)     # warm-up
-    FA.flash_attention_kernel.launches = 0
+    FA.reset_launches()
     out, ms = timed(lambda: probe.generate(prompts, max_new=SERVE_NEW))
     launches = FA.flash_attention_kernel.launches
     if out.shape != (SERVE_B, SERVE_NEW) or out.dtype != np.int32 \
@@ -1430,16 +1546,30 @@ def main() -> int:
         "bound_ms": qkern["bound_ms"], "bound_by": qkern["bound_by"],
         "library_ms": qkern["library_ms"]}, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": prefill["launches"] + trans["launches"]
         + hpre["flash_launches_per_forward"],
+        "sources": ["src/repro_torch/csrc/flash_attention_sm90.cu",
+                    "src/repro_torch/csrc/flash_attention.cu"],
+        "launches_by_variant": {
+            k: prefill["launches_by_variant"][k]
+            + trans["launches_by_variant"][k]
+            + hpre["flash_launches_by_variant"][k]
+            for k in prefill["launches_by_variant"]},
         "max_abs_err": akern["max_abs_err"],
         "ms": akern["prefill_self"]["kernel_ms"],
+        "mma_ms": akern["prefill_self"]["mma_ms"],
         "plain_ms": akern["prefill_self"]["plain_ms"],
         "bound_ms": akern["prefill_self"]["bound_ms"],
         "bound_by": akern["prefill_self"]["bound_by"],
-        "library_ms": akern["prefill_self"]["library_ms"]}, {
+        "library_ms": akern["prefill_self"]["library_ms"],
+        "d112": {k: akern["hybrid_self"][k] for k in (
+            "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "cross": {k: akern["prefill_cross"][k] for k in (
+            "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd.py:32",

@@ -3,7 +3,7 @@
 The torch counterpart of ``repro.core.codecs`` for a flat process group,
 where each rank is its own process:
 
-    init_state(plan)          -> ExchangeState (one entry per stage)
+    init_state(plan, device=) -> ExchangeState (one entry per stage)
     encode(buf)               -> (wire values, optional side scales)
     encode_stateful(buf, st)  -> (wire, scales, new bucket state)
     decode(wire, scale, …)    -> buf in the native dtype
@@ -105,13 +105,15 @@ class WireCodec:
                 + self.scale_bytes)
 
     # -- stateful protocol (defaults = the zero-state adapter) --------------
-    def init_bucket_state(self, n_elems: int, kind: str = "dense",
-                          device="cpu") -> Any:
-        """Initial state for one schedule stage; ``()`` = no state."""
+    def init_bucket_state(self, n_elems: int, kind: str = "dense", *,
+                          device) -> Any:
+        """Initial state for one schedule stage on ``device`` (required:
+        state beside CUDA gradients must not land on the CPU by default);
+        ``()`` = no state."""
         del n_elems, kind, device
         return ()
 
-    def init_state(self, plan, device="cpu") -> ExchangeState:
+    def init_state(self, plan, *, device) -> ExchangeState:
         """One ``init_bucket_state`` entry per schedule stage, each sized
         for this worker alone (every rank is its own process, so the
         reference's ``shard_map`` global view has no counterpart)."""
@@ -239,8 +241,8 @@ class ErrorFeedbackCodec(WireCodec):
     def decode(self, wire, scale, native_dtype):
         return self.inner.decode(wire, scale, native_dtype)
 
-    def init_bucket_state(self, n_elems: int, kind: str = "dense",
-                          device="cpu"):
+    def init_bucket_state(self, n_elems: int, kind: str = "dense", *,
+                          device):
         if kind != "dense":
             return ()
         return torch.zeros((n_elems,), dtype=torch.float32, device=device)

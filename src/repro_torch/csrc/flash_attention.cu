@@ -11,6 +11,10 @@
 //
 // Head dims 16, 32, 48, 64, 112 (zamba2-7b: 3584 / 32; 7 x 16 fits the
 // m16n8k16 tiles and a 224-byte row keeps 16-byte loads aligned) and 128.
+// bf16 inputs at head dims 64, 112 and 128 with at least 128 query rows
+// and TMA-legal pointers and strides (every prefill of the two models) go
+// to the TMA + wgmma kernel in flash_attention_sm90.cu instead; the Python
+// wrapper picks (repro_torch.kernels.flash_attention._variant).
 //
 // Layout: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), read through their
 // strides (the head dim contiguous), no transposed or padded copies; query

@@ -10,7 +10,10 @@ to the values' dtype — ``repro.kernels.densify``'s contract):
 
   * ``densify_kernel`` launches the hand-written Hopper kernel
     (``csrc/densify.cu``) on CUDA tensors and counts its launches in
-    ``densify_kernel.launches``;
+    ``densify_kernel.launches``: a counting sort of the rows by id into a
+    small int32 workspace, each id's rows put in ascending order, then
+    one pass that writes every output row once, summing its rows in that
+    order, so the result is the same bit for bit from run to run;
   * ``densify_plain`` is the plain PyTorch version (f32 ``index_add_``
     over the valid rows), which CPU tensors take.
 """
@@ -61,11 +64,21 @@ def _check(indices: torch.Tensor, values: torch.Tensor,
                          f"got {tuple(values.shape)}")
 
 
+def workspace_ints(n: int, vocab: int) -> int:
+    """int32s of workspace one launch needs: the CSR offsets
+    (vocab + 1), the grouped row list and its sorted copy (n each), the
+    list of output rows with many input rows (vocab + 1) and room for the
+    id counts (vocab + 1) where they do not fit in shared memory; the
+    source refuses less."""
+    return 2 * n + 3 * (vocab + 1)
+
+
 def _entry_point():
     """``repro_densify`` from the built library, with its C signature
-    (pointers and the stream as ``c_void_p``, sizes as ``int64_t``)."""
+    (pointers and the stream as ``c_void_p``; sizes, the workspace's
+    among them, as ``int64_t``)."""
     fn = build.load("densify").repro_densify
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 \
         + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -77,14 +90,13 @@ def densify_kernel(indices: torch.Tensor, values: torch.Tensor,
     dense_shape = tuple(int(s) for s in dense_shape)
     _check(indices, values, dense_shape)
     fn = _entry_point()
+    n, vocab = indices.shape[0], dense_shape[0]
     out = torch.empty(dense_shape, dtype=values.dtype, device=values.device)
-    scratch = (torch.empty(dense_shape, dtype=torch.float32,
-                           device=values.device)
-               if values.dtype == torch.bfloat16 else None)
+    ws = torch.empty(workspace_ints(n, vocab), dtype=torch.int32,
+                     device=values.device)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     rc = fn(indices.data_ptr(), values.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            indices.shape[0], dense_shape[0], dense_shape[1],
+            ws.data_ptr(), n, vocab, dense_shape[1], ws.numel(),
             _DTYPE_CODES[values.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"densify kernel launch failed: cudaError {rc}")

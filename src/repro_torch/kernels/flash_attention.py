@@ -14,19 +14,34 @@ public function:
   probabilities forced to 0, ``l`` clamped at 1e-30, so a fully masked
   row comes out 0.
 
-  * ``flash_attention_kernel`` launches the hand-written Hopper kernel
-    (``csrc/flash_attention.cu``) on CUDA tensors and counts its
-    launches in ``flash_attention_kernel.launches``;
+  * ``flash_attention_kernel`` launches one of the hand-written Hopper
+    kernels on CUDA tensors, chosen by ``_variant`` from dtypes, head
+    dim, ``Sq``, alignment and strides:
+
+      "sm90"  bf16 q, k, v at head dims 64, 112, 128 with at least one
+              128-row query tile, 16-byte-aligned pointers and strides
+              that are multiples of 16 bytes: the warp-specialised TMA +
+              wgmma kernel (``csrc/flash_attention_sm90.cu``) -- every
+              prefill self- and cross-attention of the two models;
+      "mma"   other bf16 q, k, v: ``flash_mma`` (``mma.sync``,
+              ``csrc/flash_attention.cu``);
+      "simt"  f32 q, k, v, or bf16 q with f32 k, v: ``flash_simt``.
+
+    The choice is by shape, not a fallback: a refused launch raises.  It
+    counts every launch in ``flash_attention_kernel.launches`` and each
+    variant's in ``flash_attention_kernel.launches_by_variant``;
   * ``flash_attention_plain`` is the plain PyTorch version (the same
     online softmax over key blocks), which CPU tensors take.
 
 What bounds it on the H100: at the prefill's causal 32768 x 32768 the
 QK^T and PV products (4·D flops per unmasked query-key pair and head) on
 the bf16 tensor cores; at the decode step's one query row per sequence,
-the bytes of k and v.  The kernel's design for both is in the source's
-header: bf16 inputs go through ``mma.sync`` with f32 accumulation and
-skip key tiles that the causal or window mask empties; f32 inputs take a
-scalar f32 path that keeps the reference's f32 products.
+the bytes of k and v.  The kernels' designs are in the sources'
+headers: the prefill kernel streams K and V tiles by TMA through a ring
+in shared memory to two wgmma warpgroups; ``flash_mma`` loads its tiles
+synchronously and uses ``mma.sync``; both accumulate in f32 and skip key
+tiles that the causal or window mask empties; f32 inputs take a scalar
+f32 path that keeps the reference's f32 products.
 """
 from __future__ import annotations
 
@@ -39,6 +54,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 48, 64, 112, 128)
+SM90_HEAD_DIMS = (64, 112, 128)
+SM90_ROWS = 128                   # query rows of one sm90 block
+VARIANTS = ("sm90", "mma", "simt")
 NO_WINDOW = 2 ** 31 - 1           # "no window": q_pos - k_pos is always less
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -119,6 +137,42 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "k and v contiguous (stride 1)")
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA's rule for a bf16 tensor: a 16-byte-aligned base and, for every
+    dimension longer than 1, a positive stride that is a multiple of 16
+    bytes (the head dim is contiguous, ``_check``)."""
+    if t.data_ptr() % 16:
+        return False
+    return all(n == 1 or (st > 0 and st * t.element_size() % 16 == 0)
+               for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel takes these inputs (a pure function of dtypes, head
+    dim, Sq, Sk, alignment and strides; see the module docstring)."""
+    bf16 = torch.bfloat16
+    if q.dtype != bf16 or k.dtype != bf16:
+        return "simt"
+    if v.dtype == bf16 and q.shape[-1] in SM90_HEAD_DIMS \
+            and q.shape[1] >= SM90_ROWS and k.shape[1] > 0 \
+            and all(_tma_ok(t) for t in (q, k, v)):
+        return "sm90"
+    return "mma"
+
+
+def _resolve(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             override: Optional[str]) -> str:
+    """``_variant``'s choice, or ``override`` where it may stand in: only
+    "mma" for "sm90" (the same bf16 inputs)."""
+    chosen = _variant(q, k, v)
+    if override is None or override == chosen:
+        return chosen
+    if (chosen, override) != ("sm90", "mma"):
+        raise ValueError(f"flash attention kernel: variant {override!r} "
+                         f"cannot take inputs that {chosen!r} takes")
+    return override
+
+
 def _entry_point():
     """``repro_flash_attention`` from the built library, with its C
     signature: pointers and the stream as ``c_void_p``, strides as
@@ -134,16 +188,33 @@ def _entry_point():
     return fn
 
 
+def _entry_point_sm90():
+    """``repro_flash_attention_sm90`` from its own library, with its C
+    signature: ``repro_flash_attention``'s without the two dtype flags
+    (the kernel takes bf16 only)."""
+    fn = build.load("flash_attention_sm90").repro_flash_attention_sm90
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        + [ctypes.c_int64] * 9 + [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, causal: bool = True,
                            window: Optional[int] = None,
                            scale: Optional[float] = None,
                            q_offset: Optional[int] = None,
-                           kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch the Hopper kernel on the current stream (no synchronise).
+                           kv_len: Optional[int] = None,
+                           _override: Optional[str] = None) -> torch.Tensor:
+    """Launch a Hopper kernel on the current stream (no synchronise).
     Same arguments and defaults as ``flash_attention_plain``; q, k and v
-    are read through their strides (the head dim must be contiguous)."""
+    are read through their strides (the head dim must be contiguous).
+    ``_override`` names the variant instead of ``_variant``; it exists so
+    that a benchmark can time "mma" on inputs that "sm90" takes."""
     _check(q, k, v)
+    variant = _resolve(q, k, v, _override)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
@@ -153,19 +224,28 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _entry_point()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, hkv, sq, sk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), window, scale, q_offset, kv_len,
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-            stream)
+            int(causal), window, scale, q_offset, kv_len)
+    if variant == "sm90":
+        rc = _entry_point_sm90()(*args, stream)
+    else:
+        rc = _entry_point()(*args, int(q.dtype == torch.bfloat16),
+                            int(k.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash attention kernel ({variant}) launch "
+                           f"failed: cudaError {rc}")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by_variant[variant] += 1
     return out
 
 
-flash_attention_kernel.launches = 0
+def reset_launches() -> None:
+    """Set the total and every variant's launch count to 0."""
+    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()

@@ -196,3 +196,124 @@ def test_entry_point_declares_its_c_signature(monkeypatch):
                                   ctypes.c_float] + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
+
+
+def test_sm90_entry_point_declares_its_c_signature(monkeypatch):
+    """The prefill kernel's entry point: ``repro_flash_attention``'s
+    signature without the two dtype flags (it takes bf16 only)."""
+    fake = ctypes.CDLL(None)["abs"]          # any C function will do
+    monkeypatch.setattr(build, "load", lambda name: types.SimpleNamespace(
+        repro_flash_attention_sm90=fake))
+    fn = tflash._entry_point_sm90()
+    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        + [ctypes.c_int64] * 9 + [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_float] + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    """A tensor with real strides and no storage (data_ptr 0), so the
+    main path's shapes cost no memory here."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _variant_inputs(case):
+    bf, f32 = torch.bfloat16, torch.float32
+    if case == "prefill_d64":
+        q = _meta((1, 32768, 16, 64))
+        return q, q, q
+    if case == "prefill_d112":
+        q = _meta((1, 32768, 32, 112))
+        return q, q, q
+    if case == "prefill_d128":
+        q = _meta((2, 256, 4, 128))
+        return q, q, q
+    if case == "prefill_cross":
+        kv = _meta((1, 256, 16, 64))
+        return _meta((1, 32768, 16, 64)), kv, kv
+    if case == "gqa_4":
+        kv = _meta((1, 4096, 8, 112))
+        return _meta((1, 4096, 32, 112)), kv, kv
+    if case == "packed_qkv_view":        # (B, S, 3, H, D)[:, :, i]
+        qkv = _meta((1, 1024, 3, 16, 64))
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if case == "sq_one_tile":
+        q = _meta((1, 128, 2, 64))
+        return q, q, q
+    if case == "sq_below_tile":
+        q = _meta((1, 127, 2, 64))
+        return q, q, q
+    if case == "decode":
+        kv = _meta((8, 256, 16, 64))
+        return _meta((8, 1, 16, 64)), kv, kv
+    if case == "d48":
+        q = _meta((1, 4096, 2, 48))
+        return q, q, q
+    if case == "d32":
+        q = _meta((1, 4096, 2, 32))
+        return q, q, q
+    if case == "f32":
+        q = _meta((1, 4096, 2, 64), f32)
+        return q, q, q
+    if case == "bf16_q_f32_kv":
+        kv = _meta((1, 4096, 2, 64), f32)
+        return _meta((1, 4096, 2, 64)), kv, kv
+    if case == "misaligned_pointer":     # one element into a flat buffer
+        flat = _meta((4096 * 2 * 64 + 1,))
+        kv = flat[1:].view(1, 4096, 2, 64)
+        return _meta((1, 4096, 2, 64)), kv, kv
+    if case == "stride_not_16_bytes":    # rows 65 elements apart
+        k = _meta((1, 4096, 65))[..., :64].unsqueeze(2)
+        return _meta((1, 4096, 1, 64)), k, k
+    if case == "head_stride_not_16_bytes":
+        k = _meta((1, 4096, 2, 68))[..., :64]
+        return _meta((1, 4096, 2, 64)), k, k
+    if case == "size_one_dims_any_stride":
+        q = _meta((1, 512, 1, 64)).as_strided((1, 512, 1, 64),
+                                              (3, 64, 5, 1))
+        return q, q, q
+    if case == "empty_keys":
+        kv = _meta((1, 0, 2, 64))
+        return _meta((1, 512, 2, 64)), kv, kv
+    raise KeyError(case)
+
+
+VARIANT_CASES = [
+    ("prefill_d64", "sm90"), ("prefill_d112", "sm90"),
+    ("prefill_d128", "sm90"), ("prefill_cross", "sm90"), ("gqa_4", "sm90"),
+    ("packed_qkv_view", "sm90"), ("sq_one_tile", "sm90"),
+    ("size_one_dims_any_stride", "sm90"),
+    ("sq_below_tile", "mma"), ("decode", "mma"), ("d48", "mma"),
+    ("d32", "mma"), ("misaligned_pointer", "mma"),
+    ("stride_not_16_bytes", "mma"), ("head_stride_not_16_bytes", "mma"),
+    ("empty_keys", "mma"),
+    ("f32", "simt"), ("bf16_q_f32_kv", "simt"),
+]
+
+
+@pytest.mark.parametrize("case, want", VARIANT_CASES)
+def test_variant_follows_dtype_head_dim_length_and_layout(case, want):
+    """Which hand-written kernel takes the inputs: the TMA + wgmma
+    prefill kernel for bf16 at head dims 64/112/128 with a full query
+    tile and TMA-legal pointers and strides, ``flash_mma`` for the other
+    bf16 inputs, ``flash_simt`` for f32 keys."""
+    assert tflash._variant(*_variant_inputs(case)) == want
+
+
+def test_variant_override_only_trades_sm90_for_mma():
+    """The timing-only ``_override`` may run "mma" where "sm90" would
+    run; any other swap is refused before anything launches."""
+    q = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16)
+    short = q[:, :8]
+    assert tflash._resolve(q, q, q, None) == "sm90"
+    assert tflash._resolve(q, q, q, "mma") == "mma"
+    assert tflash._resolve(short, q, q, "mma") == "mma"
+    for args, bad in (((q, q, q), "simt"), ((short, q, q), "sm90"),
+                      ((q.float(), q.float(), q.float()), "mma")):
+        with pytest.raises(ValueError, match="cannot take"):
+            tflash._resolve(*args, bad)
+    with pytest.raises(ValueError, match="CUDA"):   # device check first
+        tflash.flash_attention_kernel(q, q, q, _override="simt")
+    assert set(tflash.flash_attention_kernel.launches_by_variant) == {
+        "sm90", "mma", "simt"}

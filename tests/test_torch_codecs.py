@@ -312,6 +312,29 @@ def test_exchange_state_defaults_to_the_gradients_device(codec):
         [getattr(s, "device", None) for s in state.bucket_states]
 
 
+@pytest.mark.parametrize("name", ["int8+ef", "identity+ef"])
+def test_codec_state_takes_no_default_device(name):
+    """Built from the codec itself, the state lands on the device the
+    caller names (every residual of a dense stage), and a call that names
+    none raises: no layer of the codec falls back to the CPU."""
+    opt = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(
+        codec=name))
+    tree = {"w": torch.ones(8, 4), "b": torch.ones(5)}
+    plan = opt.plan(tree)
+    codec = codecs.get_codec(name)
+    assert isinstance(codec, codecs.ErrorFeedbackCodec)
+    state = codec.init_state(plan, device="meta")
+    residuals = [s for s in state.bucket_states if s != ()]
+    assert residuals and all(s.device.type == "meta" for s in residuals)
+    assert state.n_stages == plan.schedule.n_stages
+    with pytest.raises(TypeError):
+        codec.init_state(plan)
+    with pytest.raises(TypeError):
+        codec.init_bucket_state(4)
+    with pytest.raises(TypeError):
+        codecs.get_codec("int8").init_bucket_state(4, "dense")
+
+
 @pytest.mark.parametrize("name", ["identity+ef", "bf16+ef", "int8+ef"])
 def test_error_feedback_updates_the_residual_in_place(name):
     """The residual tensor is updated in place (one residual per bucket

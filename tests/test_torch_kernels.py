@@ -97,9 +97,22 @@ def test_entry_point_declares_its_c_signature(monkeypatch):
     monkeypatch.setattr(build, "load",
                         lambda name: types.SimpleNamespace(repro_densify=fake))
     fn = tdensify._entry_point()
-    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 \
+    # indices, values, out, workspace; n, vocab, d, workspace size; dtype
+    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 \
         + [ctypes.c_int, ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("n, vocab, want", [
+    (2048, 33708, 2 * 2048 + 3 * 33709),  # the training step's shape
+    (0, 1, 6), (1, 0, 5), (35756, 33708, 2 * 35756 + 3 * 33709)])
+def test_densify_workspace_is_linear_in_rows_and_vocab(n, vocab, want):
+    """The kernel's int32 workspace: CSR offsets, the long-row list and
+    the counts' spill (vocab + 1 each), the grouped row list and its
+    sorted copy (n each) -- ~0.42 MB at the training step's shape,
+    against the 138 MB f32 scratch it replaces."""
+    assert tdensify.workspace_ints(n, vocab) == want
+    assert 4 * tdensify.workspace_ints(2048, 33708) < 450_000
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
