@@ -35,11 +35,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
                cases (Sq not a multiple of 128, kv_len < Sk, GQA 4, head
                dim 128, strided views of a packed q/k/v), and on the path's
                shapes it is timed beside flash_mma ("mma");
-     ssd_kernel — the SSD scan kernel against ``ssd_plain`` on the card:
-               the cases of tests/test_kernels.py, a ragged S and an
-               active clip at 2e-5, the main-path shape (x 1 x 32768 x
-               112 x 64 bf16, chunk 256) at ``SSD_SCALED_TOL``; kernel and
-               plain version timed there against the bound;
+     ssd_kernel — the SSD scan kernels against ``ssd_plain`` on the
+               card, every case naming the variant that ran: f32 inputs
+               on "simt" (the cases of tests/test_kernels.py, a ragged S
+               and an active clip at 2e-5), bf16 inputs on "sm90" at
+               ``SSD_SCALED_TOL`` (a ragged S padded by ``ops.ssd``, an
+               active clip, P = N = 16 and 32, chunks 64 and 128, batch
+               2, b and c as views of one packed tensor, and the
+               main-path shape x 1 x 32768 x 112 x 64, chunk 256);
+               "sm90", "simt" and the plain version timed there, the
+               three passes' device times under ``torch.profiler``, and
+               the bound both ways (bytes, and f32 operations);
   4. path    — the launcher (``repro_torch.launch.train.run``) trains
                full-width transformer-big in bf16: 4 steps of
                ``--dist horovod --grad-accum dense_reduce`` and 1 step of
@@ -69,7 +75,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
   9. hybrid  — full-width zamba2-7b in bf16 (weights from seed 0, init
                time and memory): the prefill step on one 32768-token
                sequence, 81 SSD and 13 flash attention launches a forward
-               (all 13 on the prefill kernel);
+               (all 81 on the "sm90" SSD kernel, all 13 on the prefill
+               attention kernel);
                8 requests of a 16-token prefix and 32 greedy decode steps,
                and ``ServeEngine.generate`` on 8 x 32-token prompts with
                16 new tokens (no launch in either); then the weights cast
@@ -77,9 +84,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                plain path on 4096 tokens at ``PATH_TOL`` (in bf16 the
                difference is reported: 94 random residual blocks carry a
                last-bit difference to O(0.3) of the logits);
- 10. small   — the reduced config in f32 trains 2 steps on the card and
-               on the CPU, with the identity wire and with ``--codec
-               int8 --error-feedback``, and the losses must agree; then
+ 10. small   — the reduced transformer-big and zamba2-7b in f32 train 2
+               steps each on the card and on the CPU, with the identity
+               wire and with ``--codec int8 --error-feedback``, and the
+               losses must agree; then
                its prefill step and 4 translate steps on the card (the
                kernel's f32 path) and the CPU, logits within 3e-5; the
                reduced zamba2 the same (forward, 4-token prefix, 4 decode
@@ -530,26 +538,33 @@ def phase_codec_path(train, D, Q, comm, path) -> dict:
 
 
 def phase_small_reference(train) -> None:
-    """The reduced config in f32 trains the same on the card (kernels)
+    """The reduced configs in f32 train the same on the card (kernels)
     and on the CPU (plain versions, held against the JAX package by the
-    test suite), with the identity wire and with int8 + error feedback.
+    test suite): transformer-big and the hybrid zamba2-7b (its scan is
+    the differentiable ``ssd_chunked`` on both devices, as in the
+    reference; full width does not fit one card with f32 Adam state),
+    each with the identity wire and with int8 + error feedback.
     Tolerance rel 1e-4: the two devices sum in other orders, so an int8
     rounding may flip in a few elements of the second step's wire."""
     base = ["--reduced", "--dist", "horovod", "--grad-accum",
             "dense_reduce", "--batch-per-worker", "4", "--seq-len", "32",
             "--steps", "2", "--log-every", "1"]
     quiet = lambda s: None
-    for codec in (["--codec", "identity"],
-                  ["--codec", "int8", "--error-feedback"]):
-        args = base + codec
-        card = train.run(args + ["--device", "cuda"], log=quiet)["history"]
-        cpu = train.run(args + ["--device", "cpu"], log=quiet)["history"]
-        lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
-        if len(lc) != 2 or not all(math.isclose(x, y, rel_tol=1e-4)
-                                   for x, y in zip(lc, lh)):
-            fail(f"small reference {codec}: card losses {lc} vs cpu {lh}")
-        print(json.dumps({"phase": "small_reference", "codec": codec[1:],
-                          "card_losses": lc, "cpu_losses": lh}))
+    for arch in ("transformer-big", "zamba2-7b"):
+        for codec in (["--codec", "identity"],
+                      ["--codec", "int8", "--error-feedback"]):
+            args = base + ["--arch", arch] + codec
+            card = train.run(args + ["--device", "cuda"],
+                             log=quiet)["history"]
+            cpu = train.run(args + ["--device", "cpu"], log=quiet)["history"]
+            lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
+            if len(lc) != 2 or not all(math.isclose(x, y, rel_tol=1e-4)
+                                       for x, y in zip(lc, lh)):
+                fail(f"small reference {arch} {codec}: card losses {lc} "
+                     f"vs cpu {lh}")
+            print(json.dumps({"phase": "small_reference", "arch": arch,
+                              "codec": codec[1:], "card_losses": lc,
+                              "cpu_losses": lh}))
 
 
 # ---------------------------------------------------------------------------
@@ -861,49 +876,66 @@ def check_attn(name, out, ref, qdt, scaled: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 SSD_TOL = dict(rtol=2e-5, atol=2e-5)        # tests/test_kernels.py
-# The main-path shape (bf16 inputs, chunk 256), kernel against ssd_plain:
-# both compute in f32 from the same bf16 values and differ in the order
-# of their sums only; the cumulative decay reaches ~41 in the fastest
-# heads, where a few-ulp difference in cum moves exp(+-cum) by ~1e-5
-# relative.  The limits leave 10x above that; a dropped key tile, a lost
-# chunk of state or a wrong head moves y by O(1) of its size.  Set before
-# the first run on the card (PERF.md).
+# bf16 inputs on the "sm90" kernel, against ssd_plain: relative L2 and max
+# abs of y and of the final state at most 1e-4 of the reference's.  Both
+# compute in f32 from the same bf16 values; ssd_plain sums in another
+# order (the cumulative decay reaches ~41 in the fastest heads, where a
+# few-ulp difference in cum moves exp(+-cum) by ~1e-5 relative), and
+# "sm90" splits the f32 operand of each product in two bf16 terms (~2^-17
+# an element).  A dropped key tile, a lost chunk of state or a wrong head
+# moves y by O(1) of its size.  Set before the f32 kernel's first run on
+# the card (PERF.md), and kept for the tensor-core kernel.
 SSD_SCALED_TOL = dict(rel_l2=1e-4, max_abs_frac=1e-4)
 SSD_MAIN = (1, PREFILL_LEN, 112, 64, 64, 256)    # b, s, h, p, n, chunk
+SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 HYBRID_CHECK_LEN = 4096
 HYBRID_B, HYBRID_PREFIX, HYBRID_NEW = 8, 16, 32
 HSERVE_B, HSERVE_PROMPT, HSERVE_NEW = 8, 32, 16
 
 
 def ssd_bound(b, s, h, p, n, chunk, in_bytes):
-    """Least time (ms) and its kind for one SSD launch: the head-free
-    masked C B^T once per (batch, chunk), and per head the lower-triangle
-    scores x (dt x), C @ state and the state update, in f32 (2 flops a
-    multiply-add), against x, dt, a, b, c read and y, state written
-    once."""
+    """Least time (ms) and its kind for one SSD launch: x, dt, a, b, c
+    read and y, state written once against the operations (the
+    head-free masked C B^T once per (batch, chunk), and per head the
+    lower-triangle scores x (dt x), C @ state and the state update; 2
+    flops a multiply-add) at the bf16 tensor-core rate.  Also the same
+    bound with the operations at the f32 CUDA-core rate (the "simt"
+    design's), and the time of the operations doubled by the
+    two-term split at the bf16 rate."""
     nc = -(-s // chunk)
     tri = chunk * (chunk + 1) // 2
     flops = b * nc * tri * 2 * n \
         + b * h * nc * (tri * 2 * p + 2 * (2 * chunk * n * p))
     nbytes = b * s * h * p * in_bytes + 4 * b * s * h + 4 * h \
         + 2 * b * s * n * in_bytes + 4 * b * s * h * p + 4 * b * h * n * p
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes", flops, nbytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bf16, t_f32 = flops / BF16_FLOPS, flops / F32_FLOPS
+    return {"bound_ms": max(t_bf16, t_bytes) * 1e3,
+            "bound_by": "operations" if t_bf16 > t_bytes else "bytes",
+            "bound_f32_ms": max(t_f32, t_bytes) * 1e3,
+            "bound_f32_by": "operations" if t_f32 > t_bytes else "bytes",
+            "split_ops_bf16_ms": 2 * t_bf16 * 1e3,
+            "flops": flops, "bytes": nbytes}
 
 
 def ssd_inputs(gen, b, s, h, p, n, dtype=torch.float32, a=None,
-               dt_shift=-4.0):
+               dt_shift=-4.0, packed=False):
     """x, b, c ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1) + dt_shift)
-    and a = -exp(U(0, 2.5)) (tests/test_kernels.py) unless given, f32."""
+    and a = -exp(U(0, 2.5)) (tests/test_kernels.py) unless given, f32.
+    ``packed``: b and c are the column halves of one (B, S, 2N) tensor,
+    as the Mamba2 block's conv output gives them."""
     dev = "cuda"
     x = torch.randn((b, s, h, p), device=dev, generator=gen).to(dtype)
     dt = torch.nn.functional.softplus(
         torch.randn((b, s, h), device=dev, generator=gen) + dt_shift)
     if a is None:
         a = -torch.exp(torch.rand((h,), device=dev, generator=gen) * 2.5)
-    bb = torch.randn((b, s, n), device=dev, generator=gen).to(dtype)
-    cc = torch.randn((b, s, n), device=dev, generator=gen).to(dtype)
+    if packed:
+        bc = torch.randn((b, s, 2 * n), device=dev, generator=gen).to(dtype)
+        bb, cc = bc[..., :n], bc[..., n:]
+    else:
+        bb = torch.randn((b, s, n), device=dev, generator=gen).to(dtype)
+        cc = torch.randn((b, s, n), device=dev, generator=gen).to(dtype)
     return x, dt, a.to(dev, torch.float32), bb, cc
 
 
@@ -917,13 +949,39 @@ def _pad_rows(args, chunk):
             F.pad(b, (0, 0, 0, pad)), F.pad(c, (0, 0, 0, pad)))
 
 
-def phase_ssd_kernel(K) -> dict:
-    """SSD scan: the kernel against ``ssd_plain`` on the card on the
-    cases of tests/test_kernels.py and a ragged S (2e-5), an active clip
-    (2e-5 of max|ref|) and the main-path shape (``SSD_SCALED_TOL``); then
-    both timed at the main-path shape against the bound."""
+def ssd_pass_ms(K, main, chunk, iters=3) -> dict:
+    """Device time of each of the "sm90" kernel's three passes a call,
+    under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    K.ssd_kernel(*main, chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            K.ssd_kernel(*main, chunk)
+        torch.cuda.synchronize()
+    out = dict.fromkeys(SSD_PASSES, 0.0)
+    for e in prof.key_averages():
+        for name in SSD_PASSES:
+            if name + "(" in e.key:
+                out[name] += e.device_time_total / iters / 1e3
+    if not all(out.values()):
+        fail(f"ssd passes: the profiler saw {out}")
+    return out
+
+
+def phase_ssd_kernel(K, ops) -> dict:
+    """SSD scan: each variant against ``ssd_plain`` on the card.  f32
+    inputs run "simt" (the cases of tests/test_kernels.py, a ragged S and
+    an active clip, at 2e-5); bf16 inputs run "sm90" at
+    ``SSD_SCALED_TOL`` (a ragged S padded by ``ops.ssd``, an active clip,
+    P = N = 16 and 32, chunks 64 and 128, batch 2, odd head counts, b and
+    c as column views of one packed tensor, and the main-path shape).
+    Every case line names the variant that ran.  Then "sm90", "simt"
+    (``_override``) and the plain version timed at the main-path shape,
+    the three passes' device times, and the bound both ways."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     mamba_a = lambda h: -torch.linspace(1.0, 16.0, h)     # exp(log(.))
+    bf16 = torch.bfloat16
     cases = [(f"case{i}", c, {}) for i, c in enumerate([
         (1, 16, 1, 4, 4, 8), (2, 64, 3, 8, 4, 16), (2, 50, 3, 8, 4, 16),
         (1, 128, 2, 16, 8, 32)])]
@@ -932,16 +990,38 @@ def phase_ssd_kernel(K) -> dict:
         ("ragged", (2, 1000, 3, 64, 64, 64), {}),
         ("clip_active", (1, 512, 4, 64, 64, 256),
          dict(a=-torch.linspace(8.0, 16.0, 4), dt_shift=3.0)),
+        ("bf16_ragged", (2, 1000, 3, 64, 64, 64), dict(dtype=bf16)),
+        ("bf16_clip_active", (1, 512, 4, 64, 64, 256),
+         dict(a=-torch.linspace(8.0, 16.0, 4), dt_shift=3.0, dtype=bf16)),
+        ("bf16_p16_n16", (1, 1024, 4, 16, 16, 256), dict(dtype=bf16)),
+        ("bf16_p32_n32_b2", (2, 512, 3, 32, 32, 128), dict(dtype=bf16)),
+        ("bf16_chunk64", (1, 512, 4, 64, 64, 64),
+         dict(a=mamba_a(4), dt_shift=-4.6, dtype=bf16)),
+        ("bf16_chunk128_b2", (2, 768, 5, 64, 64, 128), dict(dtype=bf16)),
+        ("bf16_packed_bc", (2, 1024, 4, 64, 64, 256),
+         dict(a=mamba_a(4), dt_shift=-4.6, dtype=bf16, packed=True)),
         ("main_bf16", SSD_MAIN, dict(a=mamba_a(SSD_MAIN[2]), dt_shift=-4.6,
-                                     dtype=torch.bfloat16)),
+                                     dtype=bf16, packed=True)),
     ]
-    max_err = 0.0
+    max_err = None
     main = None
     for name, (b, s, h, p, n, chunk), kw in cases:
         args = ssd_inputs(gen, b, s, h, p, n, **kw)
         padded = _pad_rows(args, chunk)
-        y, st = K.ssd_kernel(*padded, chunk)
+        want = "sm90" if args[0].dtype == bf16 else "simt"
+        variant = K._variant(*padded, chunk)
+        K.reset_launches()
+        if name == "bf16_ragged":      # the wrapper pads
+            with torch.no_grad():
+                y, st = ops.ssd(*args, chunk=chunk, impl="kernel")
+        else:
+            y, st = K.ssd_kernel(*padded, chunk)
         torch.cuda.synchronize()
+        ran = dict(K.ssd_kernel.launches_by_variant)
+        if variant != want or ran != {**dict.fromkeys(K.VARIANTS, 0),
+                                      want: 1}:
+            fail(f"ssd {name}: variant {variant}, launches {ran} (want one "
+                 f"on {want})")
         y_ref, st_ref = K.ssd_plain(*padded, chunk)
         y, y_ref = y[:, :s], y_ref[:, :s]
         if y.dtype != torch.float32 or tuple(y.shape) != (b, s, h, p) \
@@ -953,12 +1033,19 @@ def phase_ssd_kernel(K) -> dict:
         err = (y - y_ref).abs().max().item()
         st_err = (st - st_ref).abs().max().item()
         ref_max = y_ref.abs().max().item()
-        line = {"phase": "ssd_kernel", "case": name,
+        line = {"phase": "ssd_kernel", "case": name, "variant": variant,
                 "shape": [b, s, h, p, n, chunk],
-                "dtype": str(args[0].dtype)[6:], "max_abs_err": err,
+                "dtype": str(args[0].dtype)[6:],
+                "packed_bc": bool(kw.get("packed")), "max_abs_err": err,
                 "state_max_abs_err": st_err, "max_abs_ref": ref_max,
                 "max_abs_state": st_ref.abs().max().item()}
-        if name == "main_bf16":
+        if "clip_active" in name:
+            cum = torch.cumsum((args[1] * args[2]).reshape(
+                b, -1, chunk, h), dim=2)
+            line["max_abs_cum"] = cum.abs().max().item()
+            if line["max_abs_cum"] <= 60.0:
+                fail(f"ssd {name}: the clip is not active")
+        if want == "sm90":
             rel = ((y - y_ref).norm() / y_ref.norm()).item()
             st_rel = ((st - st_ref).norm() / st_ref.norm()).item()
             st_frac = st_err / st_ref.abs().max().item()
@@ -967,13 +1054,7 @@ def phase_ssd_kernel(K) -> dict:
                         tol=SSD_SCALED_TOL)
             ok = max(rel, st_rel) <= SSD_SCALED_TOL["rel_l2"] and \
                 max(err / ref_max, st_frac) <= SSD_SCALED_TOL["max_abs_frac"]
-            main = padded
         elif name == "clip_active":
-            cum = torch.cumsum((args[1] * args[2]).reshape(
-                b, -1, chunk, h), dim=2)
-            line["max_abs_cum"] = cum.abs().max().item()
-            if line["max_abs_cum"] <= 60.0:
-                fail(f"ssd {name}: the clip is not active")
             scale = max(ref_max, 1e-30)
             line["tol"] = {**SSD_TOL, "relative_to": "max|ref|"}
             ok = torch.allclose(y / scale, y_ref / scale, **SSD_TOL) and \
@@ -985,25 +1066,31 @@ def phase_ssd_kernel(K) -> dict:
         print(json.dumps(line))
         if not ok:
             fail(f"ssd {name}: kernel disagrees with ssd_plain: {line}")
-        max_err = max(max_err, err, st_err)
+        if name == "main_bf16":
+            main, max_err = padded, max(err, st_err)
         del args, padded, y, st, y_ref, st_ref
 
-    bound_ms, bound_by, flops, nbytes = ssd_bound(*SSD_MAIN, in_bytes=2)
+    bound = ssd_bound(*SSD_MAIN, in_bytes=2)
     chunk = SSD_MAIN[-1]
-    ms = plain_ms = None
-    for order in ("kernel", "plain", "plain", "kernel"):
-        if order == "kernel":
-            t = cuda_ms(lambda: K.ssd_kernel(*main, chunk), 5, warmup=1)
-            ms = t if ms is None else min(ms, t)
-        else:
-            t = cuda_ms(lambda: K.ssd_plain(*main, chunk), 2, warmup=1)
-            plain_ms = t if plain_ms is None else min(plain_ms, t)
+    runs = {"sm90": (lambda: K.ssd_kernel(*main, chunk), 10),
+            "simt": (lambda: K.ssd_kernel(*main, chunk, _override="simt"),
+                     3),
+            "plain": (lambda: K.ssd_plain(*main, chunk), 2)}
+    best = {}
+    for order in ("sm90", "simt", "plain", "plain", "simt", "sm90"):
+        fn, iters = runs[order]
+        t = cuda_ms(fn, iters, warmup=1)
+        best[order] = min(best.get(order, t), t)
+    passes = ssd_pass_ms(K, main, chunk)
+    ms = best["sm90"]
     timing = {"phase": "ssd_timing", "shape": list(SSD_MAIN),
-              "dtype": "bf16 x, b, c; f32 dt, a", "kernel_ms": ms,
-              "plain_ms": plain_ms, "library_ms": None,
+              "dtype": "bf16 x, b, c (views of one packed bc); f32 dt, a",
+              "kernel_ms": ms, "simt_ms": best["simt"],
+              "plain_ms": best["plain"], "pass_device_ms": passes,
+              "library_ms": None,
               "library_call": "none: no PyTorch call computes the SSD scan",
-              "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-              "bytes": nbytes, "tflops": flops / ms / 1e9}
+              **bound, "achieved_tb_per_s": bound["bytes"] / ms / 1e9,
+              "bound_share": bound["bound_ms"] / ms}
     print(json.dumps(timing))
     return {"max_abs_err": max_err, **timing}
 
@@ -1031,13 +1118,14 @@ def phase_hybrid_init(model):
 def phase_hybrid_prefill(model, params, K, FA) -> dict:
     """The prefill step (``forward(attn_impl="kernel")`` and ``head`` on
     the last position) over one 32768-token sequence: 81 SSD launches and
-    13 flash attention launches a forward (counts reset just before each
-    run, read just after).  On the first 4096 tokens the logits are
-    compared with the plain path's (``"chunked"``: ssd_chunked and
-    chunked attention) and reported: in bf16, 94 residual blocks of
-    random weights carry any last-bit difference to O(0.3) of the logits
-    (either kernel alone does it, PERF.md), so the check at ``PATH_TOL``
-    is made in f32 (``phase_hybrid_f32``)."""
+    13 flash attention launches a forward, all on the "sm90" kernels
+    (counts reset just before each run, read just after).  On the first
+    4096 tokens the logits are compared with the plain path's
+    (``"chunked"``: ssd_chunked and chunked attention) and reported: in
+    bf16, 94 residual blocks of random weights carry any last-bit
+    difference to O(0.3) of the logits (either kernel alone does it,
+    PERF.md), so the check at ``PATH_TOL`` is made in f32
+    (``phase_hybrid_f32``)."""
     from repro_torch.data import make_pipeline
     cfg = model.cfg
     tokens = torch.from_numpy(make_pipeline(cfg, 1, PREFILL_LEN).batch_at(
@@ -1054,12 +1142,13 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
         torch.cuda.reset_peak_memory_stats()
         runs = []
         for _ in range(3):
-            K.ssd_kernel.launches = 0
+            K.reset_launches()
             FA.reset_launches()
             logits, ms = timed(lambda: prefill_step(tokens, "kernel"))
             ssd_n = K.ssd_kernel.launches
             fa_n = FA.flash_attention_kernel.launches
             by_variant = dict(FA.flash_attention_kernel.launches_by_variant)
+            ssd_by_variant = dict(K.ssd_kernel.launches_by_variant)
             if ssd_n != want_ssd or fa_n != want_fa:
                 fail(f"hybrid prefill: {ssd_n} SSD and {fa_n} flash "
                      f"attention launches in one forward (want {want_ssd} "
@@ -1067,6 +1156,9 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
             if by_variant != {"sm90": want_fa, "mma": 0, "simt": 0}:
                 fail(f"hybrid prefill: flash attention launches by variant "
                      f"{by_variant} (want all {want_fa} on sm90)")
+            if ssd_by_variant != {"sm90": want_ssd, "simt": 0}:
+                fail(f"hybrid prefill: SSD launches by variant "
+                     f"{ssd_by_variant} (want all {want_ssd} on sm90)")
             runs.append(ms)
         peak = torch.cuda.max_memory_allocated()
         if tuple(logits.shape) != (1, cfg.vocab) \
@@ -1081,6 +1173,7 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
     ms = statistics.median(runs)
     line = {"phase": "hybrid_prefill", "tokens": PREFILL_LEN,
             "ssd_launches_per_forward": ssd_n,
+            "ssd_launches_by_variant": ssd_by_variant,
             "flash_launches_per_forward": fa_n,
             "flash_launches_by_variant": by_variant, "ms_runs": runs,
             "ms_median": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
@@ -1095,7 +1188,8 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
 def phase_hybrid_f32(model, params, K, FA) -> dict:
     """Full width and full depth in f32 (the bf16 weights cast, 27 GB):
     the prefill step's logits on the first 4096 tokens, the kernel path
-    (both kernels' f32 paths; 81 SSD and 13 flash attention launches)
+    (both kernels' f32 paths; 81 SSD launches, all on "simt", and 13
+    flash attention launches)
     against the plain path, at ``PATH_TOL``."""
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model
@@ -1112,13 +1206,15 @@ def phase_hybrid_f32(model, params, K, FA) -> dict:
         return f32.head(params, h[:, -1:])[:, 0]
 
     with torch.no_grad():
-        K.ssd_kernel.launches = 0
+        K.reset_launches()
         FA.reset_launches()
         got, ms = timed(lambda: prefill_step("kernel"))
         launches = (K.ssd_kernel.launches, FA.flash_attention_kernel.launches)
         if launches != (model.cfg.n_layers,
-                        model.cfg.n_layers // model.cfg.attn_every):
-            fail(f"hybrid f32: {launches} SSD and flash attention launches")
+                        model.cfg.n_layers // model.cfg.attn_every) \
+                or K.ssd_kernel.launches_by_variant["simt"] != launches[0]:
+            fail(f"hybrid f32: {launches} SSD and flash attention launches "
+                 f"(SSD by variant {K.ssd_kernel.launches_by_variant})")
         plain, plain_ms = timed(lambda: prefill_step("chunked"))
     diff = check_logits(f"hybrid f32 prefill {HYBRID_CHECK_LEN}", got, plain)
     line = {"phase": "hybrid_f32", "tokens": HYBRID_CHECK_LEN,
@@ -1144,7 +1240,7 @@ def phase_hybrid_decode(model, params, K, FA) -> dict:
     prefix = torch.from_numpy(make_pipeline(
         cfg, HYBRID_B, HYBRID_PREFIX).batch_at(1)["tokens"]).cuda()
     with torch.no_grad():
-        K.ssd_kernel.launches = 0
+        K.reset_launches()
         FA.reset_launches()
         cache = model.init_cache(HYBRID_B, HYBRID_PREFIX + HYBRID_NEW,
                                  device="cuda")
@@ -1187,7 +1283,7 @@ def phase_hybrid_serve(model, params, K, FA) -> dict:
         3, model.cfg.vocab, (HSERVE_B, HSERVE_PROMPT)).astype(np.int32)
     cache_len = HSERVE_PROMPT + HSERVE_NEW + 1
     probe = ServeEngine(model, params, cache_len=cache_len, eos_id=-1)
-    K.ssd_kernel.launches = 0
+    K.reset_launches()
     FA.reset_launches()
     out, ms = timed(lambda: probe.generate(prompts, max_new=HSERVE_NEW))
     launches = K.ssd_kernel.launches + FA.flash_attention_kernel.launches
@@ -1233,7 +1329,7 @@ def phase_small_hybrid(K) -> None:
         0, model.cfg.vocab, (2, 40)).astype(np.int32))
     tol = ATTN_TOL[torch.float32]
     outs = []
-    K.ssd_kernel.launches = 0
+    K.reset_launches()
     with torch.no_grad():
         for dev, params in (("cuda", card), ("cpu", cpu)):
             t = toks.to(dev)
@@ -1485,7 +1581,7 @@ def main() -> int:
     from repro_torch.core import comm
     from repro_torch.data import make_pipeline
     from repro_torch.kernels import build, densify as D, quantize as Q
-    from repro_torch.kernels import flash_attention as FA, ssd as K
+    from repro_torch.kernels import flash_attention as FA, ops, ssd as K
     from repro_torch.launch import train
     from repro_torch.models import build_model
 
@@ -1504,7 +1600,7 @@ def main() -> int:
     qkern = clock("quantize_kernel", phase_quantize_kernel, Q)
     akern = clock("attn_kernel", phase_attn_kernel, FA)
     torch.cuda.empty_cache()
-    skern = clock("ssd_kernel", phase_ssd_kernel, K)
+    skern = clock("ssd_kernel", phase_ssd_kernel, K, ops)
     torch.cuda.empty_cache()
     path = clock("path", phase_path, train, D, comm)
     codec = clock("codec", phase_codec_path, train, D, Q, comm, path)
@@ -1571,12 +1667,18 @@ def main() -> int:
             "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {
         "name": "ssd", "route": "cuda",
-        "source": "src/repro_torch/csrc/ssd.cu",
+        "source": "src/repro_torch/csrc/ssd_sm90.cu",
         "replaces": "src/repro/kernels/ssd.py:32",
         "launches": hpre["ssd_launches_per_forward"],
+        "sources": ["src/repro_torch/csrc/ssd_sm90.cu",
+                    "src/repro_torch/csrc/ssd.cu"],
+        "launches_by_variant": hpre["ssd_launches_by_variant"],
         "max_abs_err": skern["max_abs_err"],
-        "ms": skern["kernel_ms"], "plain_ms": skern["plain_ms"],
+        "ms": skern["kernel_ms"], "simt_ms": skern["simt_ms"],
+        "pass_device_ms": skern["pass_device_ms"],
+        "plain_ms": skern["plain_ms"],
         "bound_ms": skern["bound_ms"], "bound_by": skern["bound_by"],
+        "bound_f32_ms": skern["bound_f32_ms"],
         "library_ms": skern["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

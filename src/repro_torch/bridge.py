@@ -3,10 +3,11 @@ parameters bitwise.
 
 ``to_torch`` takes a nested dict of numpy arrays (the reference's params,
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the same tree
-of tensors; ``to_numpy`` goes back.  bfloat16 arrays (numpy's
-``ml_dtypes`` bfloat16) cross by reinterpreting their 16-bit patterns, so
-nothing is rounded; ``to_numpy`` returns bfloat16 tensors as float32,
-which holds every bfloat16 value exactly.
+of tensors on the device the caller names (there is no default: nothing
+lands on the CPU unless asked for); ``to_numpy`` goes back.  bfloat16
+arrays (numpy's ``ml_dtypes`` bfloat16) cross by reinterpreting their
+16-bit patterns, so nothing is rounded; ``to_numpy`` returns bfloat16
+tensors as float32, which holds every bfloat16 value exactly.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 from repro_torch.tree import tree_map
 
 
-def array_to_tensor(a, device="cpu") -> torch.Tensor:
+def array_to_tensor(a, device) -> torch.Tensor:
     a = np.array(a)                  # an owned, writable, contiguous copy
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(a.view(np.int16))
@@ -31,7 +32,7 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def to_torch(tree, device="cpu"):
+def to_torch(tree, device):
     return tree_map(lambda a: array_to_tensor(a, device), tree)
 
 

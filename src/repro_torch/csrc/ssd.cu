@@ -1,4 +1,6 @@
-// Chunked Mamba2 SSD scan on Hopper.
+// Chunked Mamba2 SSD scan on Hopper, f32 on the CUDA cores: the "simt"
+// variant, for f32 inputs and the shapes csrc/ssd_sm90.cu does not take
+// (the Python wrapper picks the variant).
 //
 // Replaces: src/repro/kernels/ssd.py::_ssd_kernel (the Pallas TPU kernel
 // behind repro.kernels.ops.ssd, impl "pallas").  Same function, chunk by
@@ -41,8 +43,9 @@
 // The cumsum is a block-level scan (warp shuffles).  Everything is f32 on
 // the CUDA cores, each thread owning a 4 x 4 register tile fed by 16-byte
 // shared-memory reads: bf16 or TF32 tensor cores would not hold the
-// reference's 2e-5 tolerance (a split-precision tensor-core design is
-// later work).  N and P up to 64 are zero-padded to the tile; L up to 256.
+// reference's 2e-5 tolerance on f32 inputs (csrc/ssd_sm90.cu splits the
+// f32 operands of bf16 inputs instead).  N and P up to 64 are zero-padded
+// to the tile; L up to 256.
 // Each block recomputes the head-free scores C B^T for its own head (H
 // times the reference's count of that product).
 //
@@ -50,8 +53,7 @@
 // launch, the head-free masked C B^T once per chunk plus, per head, the
 // lower-triangle scores x (dt x), C S and the state update: 1.21e11 f32
 // flops, 1.806 ms at 67 TFLOP/s, against 1.43e9 bytes read and written
-// once, 0.428 ms at 3.35 TB/s (H100 SXM data sheet, 700 W).  A
-// tensor-core design would restate that bound at the tensor-core rate.
+// once, 0.428 ms at 3.35 TB/s (H100 SXM data sheet, 700 W).
 //
 // Interface: one plain C entry point, launched on the caller's stream, no
 // synchronisation, no allocation.  Returns the cudaError_t of the launch.

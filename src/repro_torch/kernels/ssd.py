@@ -17,24 +17,37 @@ S a multiple of ``chunk``.  Returns y (B, S, H, P) f32 and the final
 state (B, H, N, P) f32.  B and C are read per batch entry, not repeated
 per head as the reference's wrapper does.
 
-  * ``ssd_kernel`` launches the hand-written Hopper kernel
-    (``csrc/ssd.cu``) on CUDA tensors and counts its launches in
-    ``ssd_kernel.launches``;
+  * ``ssd_kernel`` launches one of two hand-written Hopper kernels on
+    CUDA tensors, chosen by ``_variant`` from dtypes, P, N, the chunk,
+    alignment and strides:
+
+      "sm90"  bf16 x, b, c with P and N multiples of 16 up to 64, a chunk
+              that is a multiple of 64 up to 256, 16-byte-aligned
+              pointers and strides that are multiples of 16 bytes:
+              ``csrc/ssd_sm90.cu`` (bf16 wgmma with the f32 operand of
+              each product split in two bf16 terms, chunks in parallel
+              in three passes) -- the prefill path of zamba2-7b;
+      "simt"  everything else (f32 inputs, small chunks or widths):
+              ``csrc/ssd.cu`` (one block per (batch, head) walking the
+              chunks, f32 on the CUDA cores).
+
+    The choice is by shape, not a fallback: a refused launch raises.  It
+    counts every launch in ``ssd_kernel.launches`` and each variant's in
+    ``ssd_kernel.launches_by_variant``;
   * ``ssd_plain`` is the plain PyTorch version (the same per-chunk
     math, chunks batched, the state carried by a loop), which CPU
     tensors take.
 
-What bounds it on the H100: f32 operations (at zamba2-7b's prefill,
-1.21e11 flop a launch, 1.806 ms at 67 TFLOP/s, against 0.428 ms of
-bytes).  The kernel's design (one block per (batch, head) looping over
-the chunks with the state in shared memory, each chunk's B and x loaded
-once, 64-row query and key tiles, f32 on the CUDA cores) is in the
-source's header.
+What bounds it on the H100 at zamba2-7b's prefill: bytes (x, dt, a, b,
+c read and y, the state written once: 1.43e9 bytes, 0.428 ms at 3.35
+TB/s); in f32 on the CUDA cores, as "simt" computes, the operations
+(1.21e11 flop, 1.806 ms at 67 TFLOP/s).  The kernels' designs are in
+the sources' headers.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +56,10 @@ from repro_torch.kernels import build
 CLIP = 60.0
 MAX_WIDTH = 64          # N and P the kernel takes
 MAX_CHUNK = 256
+SM90_STEP = 16          # "sm90" takes N and P in multiples of this
+SM90_CHUNK_STEP = 64    # and chunks in multiples of this
+VARIANTS = ("sm90", "simt")
+STATE_TILE = 64         # "sm90" keeps each chunk's state padded to 64 x 64
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -117,6 +134,43 @@ def _check(x, dt, a, b, c, chunk) -> None:
                          "contiguous (stride 1)")
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA's rule for a bf16 tensor: a 16-byte-aligned base and, for every
+    dimension but the last (contiguous, ``_check``) that is longer than 1,
+    a positive stride that is a multiple of 16 bytes."""
+    if t.data_ptr() % 16:
+        return False
+    return all(n == 1 or (st > 0 and st * t.element_size() % 16 == 0)
+               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def _variant(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, chunk: int) -> str:
+    """Which kernel takes these inputs (a pure function of dtypes, P, N,
+    the chunk, alignment and strides; see the module docstring)."""
+    bf16 = torch.bfloat16
+    p, n = x.shape[-1], b.shape[-1]
+    if x.dtype == b.dtype == c.dtype == bf16 \
+            and all(0 < w <= MAX_WIDTH and w % SM90_STEP == 0
+                    for w in (p, n)) \
+            and 0 < chunk <= MAX_CHUNK and chunk % SM90_CHUNK_STEP == 0 \
+            and all(_tma_ok(t) for t in (x, b, c)):
+        return "sm90"
+    return "simt"
+
+
+def _resolve(x, dt, a, b, c, chunk, override: Optional[str]) -> str:
+    """``_variant``'s choice, or ``override`` where it may stand in: only
+    "simt" for "sm90" (the same bf16 inputs)."""
+    chosen = _variant(x, dt, a, b, c, chunk)
+    if override is None or override == chosen:
+        return chosen
+    if (chosen, override) != ("sm90", "simt"):
+        raise ValueError(f"ssd kernel: variant {override!r} cannot take "
+                         f"inputs that {chosen!r} takes")
+    return override
+
+
 def _entry_point():
     """``repro_ssd`` from the built library, with its C signature:
     pointers and the stream as ``c_void_p``, sizes as ``int``, strides
@@ -128,13 +182,29 @@ def _entry_point():
     return fn
 
 
+def _entry_point_sm90():
+    """``repro_ssd_sm90`` from its own library, with its C signature:
+    ``repro_ssd``'s with two more pointers (the scratch of chunk states
+    and decays) and without the dtype flag (the kernel takes bf16
+    only)."""
+    fn = build.load("ssd_sm90").repro_ssd_sm90
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
+        + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-               b: torch.Tensor, c: torch.Tensor, chunk: int
+               b: torch.Tensor, c: torch.Tensor, chunk: int,
+               _override: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on the current stream (no synchronise).
+    """Launch a Hopper kernel on the current stream (no synchronise).
     Same arguments and results as ``ssd_plain``; inputs are read through
-    their strides (the last dim must be contiguous)."""
+    their strides (the last dim must be contiguous).  ``_override`` names
+    the variant instead of ``_variant``; it exists so that a benchmark can
+    time "simt" on inputs that "sm90" takes."""
     _check(x, dt, a, b, c, chunk)
+    variant = _resolve(x, dt, a, b, c, chunk, _override)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
@@ -142,19 +212,38 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                         device=x.device)
     if bsz == 0 or h == 0:
         return y, state
-    fn = _entry_point()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     a = a.contiguous()
-    rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+    strides = (*x.stride()[:3], *dt.stride(), b.stride(0), b.stride(1),
+               c.stride(0), c.stride(1))
+    if variant == "sm90":
+        nc = s // chunk
+        states = torch.empty((bsz, nc, h, STATE_TILE, STATE_TILE),
+                             dtype=torch.float32, device=x.device)
+        decay = torch.empty((bsz, nc, h), dtype=torch.float32,
+                            device=x.device)
+        rc = _entry_point_sm90()(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+            decay.data_ptr(), bsz, s, h, p, n, int(chunk), *strides, stream)
+    else:
+        rc = _entry_point()(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), state.data_ptr(),
-            bsz, s, h, p, n, int(chunk),
-            *x.stride()[:3], *dt.stride(), b.stride(0), b.stride(1),
-            c.stride(0), c.stride(1), int(x.dtype == torch.bfloat16),
-            stream)
+            bsz, s, h, p, n, int(chunk), *strides,
+            int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"ssd kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"ssd kernel ({variant}) launch failed: "
+                           f"cudaError {rc}")
     ssd_kernel.launches += 1
+    ssd_kernel.launches_by_variant[variant] += 1
     return y, state
 
 
-ssd_kernel.launches = 0
+def reset_launches() -> None:
+    """Set the total and every variant's launch count to 0."""
+    ssd_kernel.launches = 0
+    ssd_kernel.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()

@@ -3,8 +3,9 @@
   audio   enc-dec decoder with cross-attention to encoder-state
           embeddings (the paper's transformer-big)
   hybrid  Zamba2: a Mamba2 stack with ONE shared attention block applied
-          after every ``attn_every`` Mamba2 blocks (forward and serving;
-          training waits for a backward of the SSD scan)
+          after every ``attn_every`` Mamba2 blocks (training through the
+          differentiable ``ssd_chunked``, as the reference trains it; the
+          SSD kernels serve the forward path only)
 
 Training runs ``loss``/``forward``; the prefill step runs ``forward``
 and ``head`` on the last position; serving runs ``init_cache``,

@@ -23,7 +23,7 @@ class Trainer:
     #                                     batch) -> ...
     pipeline: Any                       # global batches: .batch_at(step)
     config: TrainerConfig
-    device: Any = "cpu"
+    device: Any                         # where batches go; no default
     rank: int = 0                       # this worker's slice of the batch
     world: int = 1
 

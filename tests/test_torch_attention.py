@@ -44,7 +44,7 @@ def _qkv(seed, b, sq, sk, h, hkv, d, dtype="float32"):
     arrs = [rng.standard_normal(s).astype(np.float32)
             for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
     j = [jnp.asarray(a).astype(dtype) for a in arrs]
-    return j, [bridge.array_to_tensor(np.asarray(x)) for x in j]
+    return j, [bridge.array_to_tensor(np.asarray(x), "cpu") for x in j]
 
 
 def _np(x):

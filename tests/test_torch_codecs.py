@@ -84,7 +84,8 @@ QUANT_CASES = [(n, s) for n in (1, 1000, 4097, 65539)
 def test_quantize_plain_matches_pallas_bitwise(case, dtype):
     x = jnp.asarray(_buffer(case)).astype(dtype)
     jq, js = jops.quantize_int8(x, impl="pallas")
-    q, s = quantize.quantize_plain(bridge.array_to_tensor(np.asarray(x)))
+    q, s = quantize.quantize_plain(bridge.array_to_tensor(np.asarray(x),
+                                                          "cpu"))
     assert q.dtype == torch.int8 and s.dtype == torch.float32
     assert tuple(q.shape) == (x.size,) and tuple(s.shape) == (1,)
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
@@ -385,13 +386,13 @@ def test_dense_tree_exchange_bitwise(name, threshold):
     opt = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(**kw))
     trees = [_dense_tree(s) for s in range(3)]
     jstate = jopt.init_exchange_state(trees[0])
-    state = opt.init_exchange_state(bridge.to_torch(trees[0]))
+    state = opt.init_exchange_state(bridge.to_torch(trees[0], "cpu"))
     assert state.n_stages == jstate.n_stages
     for tree in trees:
         jout, jstate = jopt.exchange(jax.tree_util.tree_map(jnp.asarray,
                                                             tree),
                                      state=jstate)
-        out, state = opt.exchange(bridge.to_torch(tree), state=state)
+        out, state = opt.exchange(bridge.to_torch(tree, "cpu"), state=state)
         for t, j in zip(tree_flatten(out)[0],
                         jax.tree_util.tree_leaves(jout)):
             assert str(t.dtype) == f"torch.{j.dtype}"
@@ -411,10 +412,10 @@ def _j_to_t(tree):
         if isinstance(x, list):
             return [conv(c) for c in x]
         if isinstance(x, JSlices):
-            return TSlices(bridge.array_to_tensor(x.indices),
-                           bridge.array_to_tensor(x.values),
+            return TSlices(bridge.array_to_tensor(x.indices, "cpu"),
+                           bridge.array_to_tensor(x.values, "cpu"),
                            tuple(x.dense_shape))
-        return bridge.array_to_tensor(x)
+        return bridge.array_to_tensor(x, "cpu")
 
     return jax.tree_util.tree_unflatten(treedef, [conv(x) for x in leaves])
 

@@ -38,7 +38,8 @@ SELF_TOL = dict(rtol=2e-4, atol=2e-4)
 def models():
     jmodel = jbuild_model(jget_config("transformer-big").reduced())
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                              "cpu")
     tmodel = build_model(get_config("transformer-big").reduced())
     return jmodel, jparams, tmodel, tparams
 

@@ -157,10 +157,10 @@ def _j_to_t(tree):
         if isinstance(x, list):
             return [conv(c) for c in x]
         if isinstance(x, JSlices):
-            return TSlices(bridge.array_to_tensor(x.indices),
-                           bridge.array_to_tensor(x.values),
+            return TSlices(bridge.array_to_tensor(x.indices, "cpu"),
+                           bridge.array_to_tensor(x.values, "cpu"),
                            tuple(x.dense_shape))
-        return bridge.array_to_tensor(x)
+        return bridge.array_to_tensor(x, "cpu")
 
     return jax.tree_util.tree_unflatten(treedef, [conv(x) for x in leaves])
 
@@ -268,12 +268,27 @@ def test_bridge_roundtrip_is_bitwise():
     arrays = {"w": np.arange(6, dtype=np.float32).reshape(2, 3) / 7,
               "n": {"bf": np.asarray(jnp.linspace(-3, 3, 11,
                                                   dtype=jnp.bfloat16))}}
-    t = bridge.to_torch(arrays)
+    t = bridge.to_torch(arrays, "cpu")
     assert t["n"]["bf"].dtype == torch.bfloat16
     back = bridge.to_numpy(t)
     np.testing.assert_array_equal(back["w"], arrays["w"])
     np.testing.assert_array_equal(back["n"]["bf"],
                                   arrays["n"]["bf"].astype(np.float32))
+
+
+def test_bridge_takes_no_default_device():
+    """The tree lands on the device the caller names, and a call that
+    names none raises: the bridge never puts weights on the CPU unasked."""
+    arrays = {"w": np.ones((2, 3), np.float32),
+              "bf": np.asarray(jnp.ones(4, dtype=jnp.bfloat16))}
+    with pytest.raises(TypeError):
+        bridge.to_torch(arrays)
+    with pytest.raises(TypeError):
+        bridge.array_to_tensor(arrays["w"])
+    meta = bridge.to_torch(arrays, "meta")
+    assert {t.device.type for t in meta.values()} == {"meta"}
+    assert meta["bf"].dtype == torch.bfloat16
+    assert bridge.array_to_tensor(arrays["w"], "meta").device.type == "meta"
 
 
 def test_distributed_optimizer_update_is_exchange_then_base(reduced_grads):

@@ -12,7 +12,8 @@ on the CPU).  Values within 1e-5 (f32; XLA and torch sum in other
 orders).  The reduced config
 has 4 layers and ``attn_every`` 2, so no trailing Mamba2 block; the
 5-layer variant has one, as full width has 3 (81 = 13 x 6 + 3).
-The serving path is in tests/test_torch_hybrid_decode.py.
+The serving path is in tests/test_torch_hybrid_decode.py, the training
+gradients in tests/test_torch_hybrid_train.py.
 """
 import pytest
 
@@ -21,16 +22,27 @@ torch = pytest.importorskip("torch")
 import jax                                    # noqa: E402
 import jax.numpy as jnp                       # noqa: E402
 import numpy as np                            # noqa: E402
+import torch.distributed as dist              # noqa: E402
 
 from repro.configs import get_config as jget_config      # noqa: E402
+from repro.core import (DistributedOptimizer as JDistOpt,  # noqa: E402
+                        ExchangeConfig as JExchangeConfig)
+from repro.data import make_pipeline as jmake_pipeline   # noqa: E402
 from repro.models import build_model as jbuild_model     # noqa: E402
 from repro.models import ssm as JS                       # noqa: E402
+from repro.optim import adamw as jadamw, noam_schedule as jnoam  # noqa: E402
+from repro.training import (Trainer as JTrainer,          # noqa: E402
+                            TrainerConfig as JTrainerConfig,
+                            make_train_step as jmake_train_step)
 from repro_torch import bridge                           # noqa: E402
 from repro_torch.configs import get_config               # noqa: E402
+from repro_torch.data import make_pipeline               # noqa: E402
 from repro_torch.launch import train                     # noqa: E402
 from repro_torch.models import build_model               # noqa: E402
 from repro_torch.models import model as M                # noqa: E402
 from repro_torch.models import ssm as S                  # noqa: E402
+from repro_torch.training import (Trainer, TrainerConfig,  # noqa: E402
+                                  make_train_step)
 from repro_torch.tree import tree_flatten                # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -46,7 +58,8 @@ def _build(n_layers=None):
             n_layers=n_layers)
     jmodel = jbuild_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                              "cpu")
     return jmodel, jparams, build_model(tcfg), tparams
 
 
@@ -182,7 +195,58 @@ def test_forward_counts_kernel_launches_by_route(models5, monkeypatch):
     assert calls["attn"] == ["kernel"] * 2 + ["chunked"] * 2
 
 
-def test_launcher_refuses_hybrid_training():
-    with pytest.raises(ValueError, match="hybrid training waits"):
-        train.run(["--arch", "zamba2-7b", "--reduced", "--device", "cpu",
-                   "--steps", "1"])
+HYBRID_ARGV = ["--arch", "zamba2-7b", "--reduced", "--dist", "horovod",
+               "--grad-accum", "dense_reduce", "--batch-per-worker", "2",
+               "--seq-len", "16", "--warmup", "400", "--steps", "3",
+               "--log-every", "1", "--device", "cpu"]
+
+
+def test_launcher_trains_hybrid_like_the_reference():
+    """The launcher trains the reduced zamba2 (its scan through the
+    differentiable ``ssd_chunked``, as the reference trains it): three
+    logged steps of finite loss.  Then the launcher's optimizer, step and
+    trainer, from the reference's bridged parameters, take the reference
+    trainer's three losses (rtol 1e-5, as tests/test_torch_train.py
+    holds transformer-big)."""
+    res = train.run(HYBRID_ARGV, log=lambda s: None)
+    assert [h["step"] for h in res["history"]] == [1, 2, 3]
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
+    assert not dist.is_initialized()
+
+    args = train.parse_args(HYBRID_ARGV)
+    jcfg = jget_config("zamba2-7b").reduced()
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jopt = JDistOpt(jadamw(jnoam(jcfg.d_model, warmup_steps=args.warmup)),
+                    exchange=JExchangeConfig(sparse_as_dense=True,
+                                             use_kernel=True))
+    jstep = jmake_train_step(jmodel, jopt, sparse_embedding=True)
+    jpipe = jmake_pipeline(jcfg, args.batch_per_worker, args.seq_len,
+                           seed=args.seed)
+    jres = JTrainer(jmodel, jstep, jpipe, JTrainerConfig(
+        total_steps=args.steps, log_every=1)).run(
+        jparams, jopt.init(jparams), log=lambda s: None)
+
+    cfg = get_config("zamba2-7b").reduced()
+    model = build_model(cfg)
+    params = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                             "cpu")
+    device = train.resolve_device(args.device)
+    rank, world, created = train.init_distributed(device)
+    assert created and (rank, world) == (0, 1)
+    try:
+        opt = train.build_optimizer(args, cfg, dist.group.WORLD)
+        step = make_train_step(model, opt, sparse_embedding=True)
+        pipe = make_pipeline(cfg, args.batch_per_worker, args.seq_len,
+                             seed=args.seed)
+        meta = train.meta_worker_grads(args, model, pipe, True)
+        ex_state = opt.init_exchange_state(meta, device=device)
+        out = Trainer(model, step, pipe, TrainerConfig(
+            total_steps=args.steps, log_every=1), device=device).run(
+            params, opt.init(params), ex_state, log=lambda s: None)
+    finally:
+        dist.destroy_process_group()
+    losses = [h["loss"] for h in out["history"]]
+    jlosses = [h["loss"] for h in jres["history"]]
+    assert len(losses) == 3
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)

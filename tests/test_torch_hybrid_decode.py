@@ -42,7 +42,8 @@ def _build(n_layers=None):
             n_layers=n_layers)
     jmodel = jbuild_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                              "cpu")
     return jmodel, jparams, build_model(tcfg), tparams
 
 

@@ -37,7 +37,7 @@ def test_densify_matches_jax(n, v, d, dtype):
     idx = rng.integers(0, v, size=(n,)).astype(np.int32)
     j_vals = jnp.asarray(rng.standard_normal((n, d))).astype(dtype)
     t_idx = torch.from_numpy(idx)
-    t_vals = bridge.array_to_tensor(np.asarray(j_vals))
+    t_vals = bridge.array_to_tensor(np.asarray(j_vals), "cpu")
     out = ops.densify(t_idx, t_vals, (v, d))
     out_ref = ref.densify_ref(t_idx, t_vals, (v, d))
     j_out = jops.densify(jnp.asarray(idx), j_vals, (v, d))
@@ -65,7 +65,8 @@ def test_densify_sums_duplicates(dtype):
     idx = np.zeros((100,), np.int32)
     j_vals = jnp.ones((100, 8), dtype)
     out = ops.densify(torch.from_numpy(idx),
-                      bridge.array_to_tensor(np.asarray(j_vals)), (4, 8))
+                      bridge.array_to_tensor(np.asarray(j_vals), "cpu"),
+                      (4, 8))
     want = jops.densify(jnp.asarray(idx), j_vals, (4, 8))
     np.testing.assert_allclose(_np(out), _np(want))
     np.testing.assert_allclose(_np(out)[0], 100.0)

@@ -43,7 +43,8 @@ def reduced():
     jcfg = jget_config("transformer-big").reduced()
     jmodel = jbuild_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                              "cpu")
     return jmodel, jparams, build_model(get_config("transformer-big")
                                         .reduced()), tparams
 

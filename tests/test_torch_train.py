@@ -69,7 +69,8 @@ def test_three_steps_match_reference():
 
     cfg = get_config("transformer-big").reduced()
     model = build_model(cfg)
-    params = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    params = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                             "cpu")
     device = train.resolve_device(args.device)
     rank, world, created = train.init_distributed(device)
     assert created and (rank, world) == (0, 1)
@@ -154,7 +155,8 @@ def test_three_steps_int8_error_feedback_match_reference():
 
     cfg = get_config("transformer-big").reduced()
     model = build_model(cfg)
-    params = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    params = bridge.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                             "cpu")
     device = train.resolve_device(args.device)
     rank, world, created = train.init_distributed(device)
     assert created and (rank, world) == (0, 1)
@@ -238,6 +240,25 @@ def test_main_int8_error_feedback_on_cpu(capsys):
     assert "step 2: loss=" in out
     assert out.strip().splitlines()[-1].startswith("done: {")
     assert not dist.is_initialized()
+
+
+def test_trainer_takes_no_default_device():
+    """The trainer's batches land on the device the caller names, and a
+    trainer that names none cannot be built: it never runs on the CPU
+    unasked."""
+    cfg = get_config("transformer-big").reduced()
+    model = build_model(cfg)
+    pipe = make_pipeline(cfg, 2, 8, seed=0)
+    with pytest.raises(TypeError):
+        Trainer(model, None, pipe, TrainerConfig())
+    for device in ("meta", "cpu"):
+        batch = Trainer(model, None, pipe, TrainerConfig(),
+                        device=device).batch_at(0)
+        assert {t.device.type for t in batch.values()} == {device}
+    batch = Trainer(model, None, pipe, TrainerConfig(), device="cpu",
+                    rank=1, world=2).batch_at(0)
+    np.testing.assert_array_equal(batch["tokens"].numpy(),
+                                  pipe.batch_at(0)["tokens"][1:])
 
 
 def test_main_defaults_to_the_card():
