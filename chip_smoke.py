@@ -16,6 +16,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
                reported), then time kernel, plain version and one library
                call where there is one with CUDA events against the least
                time the card could take;
+     int8_wire_kernel — the int8 wire's fused kernels: the error-feedback
+               encode (bf16 leaf and f32 residual in, q, scale and the
+               residual updated in place) bitwise against
+               ``quantize_ef_plain`` at every distinct stage size of the
+               int8+ef plan, each with a residual a previous step left,
+               and on edge cases (n = 0 and 1, ragged, a misaligned leaf
+               or residual, NaN, inf, f32 input, zeros), the stateless
+               bf16 encode at the same sizes, and the decode-sum bitwise
+               against its in-order plain version for P = 1, 2 and 8;
+               both timed at every stage size as device time with the L2
+               flushed by a read, beside their byte bounds, the bytes
+               the design moves, the plain versions and the unfused
+               sequences they replaced, with each encode pass's time;
      attn_kernel — the same for flash attention: the forward path's three
                shapes (causal 1 x 32768 x 16 x 64, cross 32768 x 256,
                decode cross 8 x 1 x 256), the cases of
@@ -56,8 +69,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                ``dense_reduce --codec int8 --error-feedback`` and 1 step
                of ``sparse_gather --codec int8``, counters reset before
                each run and read after: one quantize launch per schedule
-               stage, densify once a step, two allgathers per dense stage
-               and three per gather stage, no allreduce;
+               stage (under error feedback every one the fused encode),
+               one decode-sum per dense stage, densify once a step, two
+               allgathers per dense stage and three per gather stage, no
+               allreduce;
   6. prefill — full-width transformer-big's prefill step on one
                32768-token sequence with 256 encoder states:
                ``forward(attn_impl="kernel")`` and ``head`` on the last
@@ -157,6 +172,46 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     if total_us <= 0:
         fail("torch.profiler recorded no device time")
     return total_us / iters / 1e3
+
+
+def device_ms_cold(fn, iters: int, warmup: int = 1) -> float:
+    """Device time of one ``fn()`` (its kernels, memsets and copies, not
+    the host's gaps between them) with the 50 MB L2 flushed before each
+    call by a 64 MB read, which leaves no dirty line to write back; the
+    flush's own device time, profiled alone, is taken off."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def per_call(g):
+        for _ in range(warmup):
+            g()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                g()
+            torch.cuda.synchronize()
+        return sum(e.device_time_total
+                   for e in prof.key_averages()) / iters / 1e3
+    alone = per_call(flush.max)
+    return per_call(lambda: (flush.max(), fn())) - alone
+
+
+def kernel_device_ms(fn, iters: int = 10) -> dict:
+    """Device time a call of each kernel ``fn()`` runs, by kernel name,
+    with the L2 flushed by a 64 MB read before each call (the flush's
+    own kernel left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.max()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and "reduce_kernel" not in e.key}
 
 
 class PhaseClock:
@@ -448,6 +503,223 @@ def phase_quantize_kernel(Q) -> dict:
     return {"max_abs_err": max_err, **timing}
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two f32 tensors, except that any NaN equals
+    any NaN (the card's NaN payloads are its own)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    same = (a.view(torch.int32) == b.view(torch.int32)) \
+        | (a.isnan() & b.isnan())
+    return bool(same.all().item())
+
+
+def int8_ef_stage_sizes(train) -> dict:
+    """{elements: stages} of the int8+ef dense_reduce plan's dense
+    stages, each a single-slot bucket of a bf16 leaf."""
+    plan = exchange_plan(train, FULL_WIDTH + [
+        "--grad-accum", "dense_reduce", "--codec", "int8",
+        "--error-feedback"])
+    sizes = {}
+    for st in plan.schedule.stages:
+        bucket = plan.dense_buckets[st.bucket_id]
+        if st.kind != "dense" or len(bucket.slots) != 1 or plan.leaf_specs[
+                plan.dense_leaf_ids[bucket.slots[0].leaf_idx]].dtype \
+                != "bfloat16":
+            fail(f"int8+ef plan: stage {st} is not a single-slot bucket "
+                 f"of a bf16 leaf")
+        sizes[bucket.n_elems] = sizes.get(bucket.n_elems, 0) + 1
+    return dict(sorted(sizes.items(), reverse=True))
+
+
+def phase_int8_wire_kernel(Q, train) -> dict:
+    """The int8 wire's fused kernels: the error-feedback encode bitwise
+    against ``quantize_ef_plain`` (q, scale and residual) at every
+    distinct stage size of the int8+ef plan (bf16 leaves, a residual
+    left by a previous step) and on edge cases; the decode-sum bitwise
+    against its in-order plain version for P = 1, 2 and 8; then both
+    timed at every stage size with the L2 flushed, beside their byte
+    bounds, the bytes the design moves, the plain versions and the
+    unfused sequence the encode replaced (cast, add, encode, decode,
+    subtract)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def normal(n, dt=bf16, scale=1e-3):
+        return (torch.randn(n, device=dev, generator=gen) * scale).to(dt)
+
+    def previous_residual(n, dt):
+        # the residual one step of the plain version leaves behind
+        r = torch.zeros(n, device=dev)
+        Q.quantize_ef_plain(normal(n, dt), r)
+        return r
+
+    def clone_at(t):
+        # a copy at the same offset from a 16-byte boundary
+        off = (t.data_ptr() % 16) // t.element_size()
+        c = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)[off:]
+        return c.copy_(t)
+
+    def check_ef(name, x, r):
+        rk, rp = clone_at(r), clone_at(r)
+        q, s = Q.quantize_ef_kernel(x, rk)
+        torch.cuda.synchronize()
+        q0, s0 = Q.quantize_ef_plain(x, rp)
+        if not (torch.equal(q, q0) and bits_equal(s, s0)
+                and bits_equal(rk, rp)):
+            dq = ((q.int() - q0.int()).abs().max().item() if q.numel()
+                  else 0)
+            fail(f"int8+ef encode {name}: kernel differs from the plain "
+                 f"version (max |dq| {dq}, scale {s.item()!r} vs "
+                 f"{s0.item()!r}, residual bitwise {bits_equal(rk, rp)})")
+        print(json.dumps({"phase": "kernel", "kernel": "quantize_ef",
+                          "case": name, "n": x.numel(),
+                          "dtype": str(x.dtype).split(".")[-1],
+                          "scale": s.item(), "bitwise": True,
+                          "tol": "bitwise (q, scale, residual)"}))
+
+    sizes = int8_ef_stage_sizes(train)
+    for n in sizes:
+        check_ef(f"stage_{n}", normal(n), previous_residual(n, bf16))
+
+    def poisoned(dt, values):
+        x = normal(4099, dt)
+        x[[3, 2050]] = torch.tensor(values, device=dev).to(dt)
+        return x
+    edge = [
+        ("n0", normal(0), torch.zeros(0, device=dev)),
+        ("n1", normal(1), previous_residual(1, bf16)),
+        ("ragged", normal(1001), previous_residual(1001, bf16)),
+        ("misaligned_leaf", normal(4100)[1:], previous_residual(4099, bf16)),
+        ("misaligned_residual", normal(4099),
+         previous_residual(4100, bf16)[1:]),
+        ("nan", poisoned(bf16, [float("nan"), 1.0]),
+         previous_residual(4099, bf16)),
+        ("inf", poisoned(bf16, [-math.inf, 1.0]),
+         previous_residual(4099, bf16)),
+        ("nan_f32", poisoned(f32, [float("nan"), -math.inf]),
+         previous_residual(4099, f32)),
+        ("f32_main", normal(34516992, f32),
+         previous_residual(34516992, f32)),
+        ("zeros", torch.zeros(4096, device=dev, dtype=bf16),
+         torch.zeros(4096, device=dev)),
+    ]
+    for name, x, r in edge:
+        check_ef(name, x, r)
+    # the stateless bf16 encode (int8 without error feedback)
+    for n in sizes:
+        x = normal(n)
+        q, s = Q.quantize_kernel(x)
+        torch.cuda.synchronize()
+        q0, s0 = Q.quantize_plain(x)
+        if not (torch.equal(q, q0) and bits_equal(s, s0)):
+            fail(f"int8 encode stateless_bf16_{n}: kernel differs from "
+                 f"the plain version")
+        print(json.dumps({"phase": "kernel", "kernel": "quantize",
+                          "case": f"stateless_bf16_{n}", "n": n,
+                          "dtype": "bfloat16", "bitwise": True,
+                          "tol": "bitwise"}))
+
+    main_n = max(sizes)
+    gathered = {}
+    for p, n in ((1, main_n), (2, main_n), (8, main_n), (3, 1001),
+                 (2, 1)):
+        g = torch.randint(-127, 128, (p * n,), device=dev,
+                          dtype=torch.int8, generator=gen)
+        sc = torch.rand(p, device=dev, generator=gen) * 1e-4
+        out = Q.decode_sum_kernel(g, sc, p)
+        torch.cuda.synchronize()
+        want = Q.decode_sum_plain(g, sc, p)
+        if not bits_equal(out, want):
+            err = (out - want).abs().max().item()
+            fail(f"int8 decode-sum P={p} n={n}: kernel differs from the "
+                 f"in-order plain version (max abs {err})")
+        if n == main_n:
+            gathered[p] = (g, sc)
+        print(json.dumps({"phase": "kernel", "kernel": "int8_decode_sum",
+                          "case": f"P{p}_n{n}", "bitwise": True,
+                          "tol": "bitwise against the in-order sum"}))
+
+    def encode_bound(n):
+        return (11 * n + 4) / HBM_BYTES_PER_S * 1e3
+
+    per_stage = []
+    for n, count in sizes.items():
+        x, r = normal(n), previous_residual(n, bf16)
+        iters = 10 if n > 1 << 20 else 50
+        enc = device_ms_cold(lambda: Q.quantize_ef_kernel(x, r), iters)
+        g = torch.randint(-127, 128, (n,), device=dev, dtype=torch.int8,
+                          generator=gen)
+        sc = torch.rand(1, device=dev, generator=gen)
+        dec = device_ms_cold(lambda: Q.decode_sum_kernel(g, sc, 1), iters)
+        per_stage.append({
+            "n": n, "stages": count, "encode_ms": enc,
+            "encode_bound_ms": encode_bound(n),
+            "encode_bound_bytes": 11 * n + 4,
+            "encode_moves_bytes": 17 * n + 4,
+            "decode_sum_ms": dec,
+            "decode_sum_bound_ms": (5 * n + 4) / HBM_BYTES_PER_S * 1e3,
+            "decode_sum_bound_bytes": 5 * n + 4})
+    step = {
+        "encode_ms": sum(s["stages"] * s["encode_ms"] for s in per_stage),
+        "encode_bound_ms": sum(s["stages"] * s["encode_bound_ms"]
+                               for s in per_stage),
+        "decode_sum_ms": sum(s["stages"] * s["decode_sum_ms"]
+                             for s in per_stage),
+        "decode_sum_bound_ms": sum(s["stages"] * s["decode_sum_bound_ms"]
+                                   for s in per_stage),
+        "elements": sum(n * c for n, c in sizes.items())}
+
+    # the main stage: kernel, plain version and the unfused sequence
+    x, r = normal(main_n), previous_residual(main_n, bf16)
+
+    def unfused():
+        c = r.add_(x.to(f32))
+        q, s = Q.quantize_kernel(c)
+        r.sub_(q.to(f32) * s)
+    best = {}
+    for order in ("kernel", "plain", "unfused", "unfused", "plain",
+                  "kernel"):
+        fn = {"kernel": lambda: Q.quantize_ef_kernel(x, r),
+              "plain": lambda: Q.quantize_ef_plain(x, r),
+              "unfused": unfused}[order]
+        t = device_ms_cold(fn, 10)
+        best[order] = min(best.get(order, t), t)
+    passes = {next((k for k in ("absmax_kernel", "encode_kernel")
+                    if k in name), name[:60]): ms for name, ms in
+              kernel_device_ms(lambda: Q.quantize_ef_kernel(x, r)).items()}
+    decode = {}
+    for p, (g, sc) in gathered.items():
+        nbytes = (p + 4) * main_n + 4 * p
+        decode[p] = {
+            "kernel_ms": device_ms_cold(
+                lambda: Q.decode_sum_kernel(g, sc, p), 10),
+            "plain_ms": device_ms_cold(
+                lambda: Q.decode_sum_plain(g, sc, p), 5),
+            # the eager decode and sum(dim=0) that the kernel replaced
+            "unfused_ms": device_ms_cold(
+                lambda: (g.reshape(p, -1).to(f32)
+                         * sc.reshape(p, 1)).sum(dim=0), 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bound_bytes": nbytes,
+            "library_ms": None}
+    timing = {"phase": "kernel_timing", "kernel": "quantize_ef",
+              "shape": {"n": main_n, "dtype": "bfloat16",
+                        "residual": "float32"},
+              "kernel_ms": best["kernel"], "plain_ms": best["plain"],
+              "unfused_ms": best["unfused"], "library_ms": None,
+              "bound_ms": encode_bound(main_n), "bound_by": "bytes",
+              "bound_bytes": 11 * main_n + 4,
+              "kernel_moves_bytes": 17 * main_n + 4,
+              "pass_device_ms": passes,
+              "decode_sum": decode, "per_stage": per_stage,
+              "per_step": step,
+              "timing": "device time a call, L2 flushed by a read before "
+                        "each call"}
+    print(json.dumps(timing))
+    return timing
+
+
 def exchange_plan(train, argv):
     """The launcher's ExchangePlan for one worker's gradient tree (built
     on meta tensors, as the launcher builds its codec state)."""
@@ -465,8 +737,9 @@ def exchange_plan(train, argv):
 
 def phase_codec_path(train, D, Q, comm, path) -> dict:
     """The launcher on full-width transformer-big with the int8 wire;
-    returns the quantize and densify launches it made."""
+    returns the launches of the int8 wire's kernels and densify."""
     quantize_launches = densify_launches = 0
+    ef_launches = decode_sum_launches = 0
     for accum, extra, steps in (
             ("dense_reduce", ["--codec", "int8", "--error-feedback"], 3),
             ("sparse_gather", ["--codec", "int8"], 1)):
@@ -479,13 +752,15 @@ def phase_codec_path(train, D, Q, comm, path) -> dict:
         want_gathers = steps * (2 * (len(stages) - n_gather) + 3 * n_gather)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        Q.quantize_kernel.launches = 0
+        Q.reset_launches()
         D.densify_kernel.launches = 0
         comm.all_gather_dense.calls = 0
         comm.all_reduce_dense.calls = 0
         result = train.run(argv)
         torch.cuda.synchronize()
         got_q, got_d = Q.quantize_kernel.launches, D.densify_kernel.launches
+        got_ef = Q.quantize_ef_kernel.launches
+        got_ds = Q.decode_sum_kernel.launches
         gathers = comm.all_gather_dense.calls
         reduces = comm.all_reduce_dense.calls
         hist = result["history"]
@@ -496,6 +771,16 @@ def phase_codec_path(train, D, Q, comm, path) -> dict:
         if len(stages) != 16 or got_q != steps * len(stages):
             fail(f"{tag}: quantize launched {got_q} times in {steps} "
                  f"steps of {len(stages)} stages (want one per stage)")
+        n_dense = len(stages) - n_gather
+        ef = "--error-feedback" in extra
+        # error feedback: every dense stage takes the fused encode (no
+        # stateless encode between an add and a subtraction)
+        if got_ef != (steps * n_dense if ef else 0):
+            fail(f"{tag}: fused error-feedback encode launched {got_ef} "
+                 f"times in {steps} steps of {n_dense} dense stages")
+        if got_ds != steps * n_dense:
+            fail(f"{tag}: decode-sum launched {got_ds} times in {steps} "
+                 f"steps of {n_dense} dense stages (want one per stage)")
         if got_d != steps:
             fail(f"{tag}: densify launched {got_d} times in {steps} steps")
         if gathers != want_gathers or reduces != 0:
@@ -519,6 +804,7 @@ def phase_codec_path(train, D, Q, comm, path) -> dict:
             "first_loss_identity": ref,
             "first_loss_bitwise_equal": losses[0] == ref,
             "stages": len(stages), "quantize_launches": got_q,
+            "quantize_ef_launches": got_ef, "decode_sum_launches": got_ds,
             "densify_launches": got_d, "all_gather_dense_calls": gathers,
             "all_reduce_dense_calls": reduces,
             "n_collectives_per_step": plan.n_collectives,
@@ -533,7 +819,11 @@ def phase_codec_path(train, D, Q, comm, path) -> dict:
             "max_memory_allocated": torch.cuda.max_memory_allocated()}))
         quantize_launches += got_q
         densify_launches += got_d
+        ef_launches += got_ef
+        decode_sum_launches += got_ds
     return {"quantize_launches": quantize_launches,
+            "quantize_ef_launches": ef_launches,
+            "decode_sum_launches": decode_sum_launches,
             "densify_launches": densify_launches}
 
 
@@ -1598,6 +1888,7 @@ def main() -> int:
                            ).batch_at(0)["tokens"]
     kern = clock("kernel", phase_kernel, D, tokens)
     qkern = clock("quantize_kernel", phase_quantize_kernel, Q)
+    wire = clock("int8_wire_kernel", phase_int8_wire_kernel, Q, train)
     akern = clock("attn_kernel", phase_attn_kernel, FA)
     torch.cuda.empty_cache()
     skern = clock("ssd_kernel", phase_ssd_kernel, K, ops)
@@ -1636,11 +1927,25 @@ def main() -> int:
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:29",
+        "entry_points": ["repro_quantize_int8_ef", "repro_quantize_int8",
+                         "repro_int8_decode_sum"],
         "launches": codec["quantize_launches"],
+        "launches_by_entry": {
+            "repro_quantize_int8_ef": codec["quantize_ef_launches"],
+            "repro_quantize_int8": codec["quantize_launches"]
+            - codec["quantize_ef_launches"],
+            "repro_int8_decode_sum": codec["decode_sum_launches"]},
         "max_abs_err": qkern["max_abs_err"],
-        "ms": qkern["kernel_ms"], "plain_ms": qkern["plain_ms"],
-        "bound_ms": qkern["bound_ms"], "bound_by": qkern["bound_by"],
-        "library_ms": qkern["library_ms"]}, {
+        "ms": wire["kernel_ms"], "plain_ms": wire["plain_ms"],
+        "unfused_ms": wire["unfused_ms"],
+        "bound_ms": wire["bound_ms"], "bound_by": wire["bound_by"],
+        "library_ms": wire["library_ms"],
+        "stateless_f32": {k: qkern[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "decode_sum": {"launches": codec["decode_sum_launches"],
+                       **wire["decode_sum"][1]},
+        "per_step": wire["per_step"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",

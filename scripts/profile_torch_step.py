@@ -14,7 +14,8 @@ of 1 over NCCL, as ``chip_smoke.py`` drives it), warms up two steps, then:
     (accumulate, densify kernel, encode, collectives, decode, unpack) and
     AdamW update, on the host clock;
   * kernels — one more step under ``torch.profiler``: device time by
-    operator and the device's busy share of that step's wall time.
+    operator, the device's busy share of that step's wall time, and the
+    number of device activities (kernels, memsets, copies) it ran.
 
 Prints one JSON object and writes it to ``--out``.  Needs a card.
 """
@@ -133,6 +134,7 @@ def main(argv=None) -> int:
                        and _device_us(e) > 0]
         kernel_rows.sort(key=lambda x: -x[1])
         busy_ms = sum(o[1] for o in kernel_rows)
+        activities = sum(o[2] for o in kernel_rows)
     finally:
         if created:
             torch.distributed.destroy_process_group()
@@ -146,7 +148,8 @@ def main(argv=None) -> int:
            "batch": [a.batch_per_worker, a.seq_len], "steps": rows,
            "median": phases,
            "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                             "idle_share": 1 - busy_ms / wall_ms},
+                             "idle_share": 1 - busy_ms / wall_ms,
+                             "device_activities": activities},
            "top_kernels_ms": [[k, ms, n] for k, ms, n in kernel_rows[:25]],
            "top_ops_ms": [[k, ms, n] for k, ms, n in ops[:25]]}
     os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)

@@ -28,8 +28,11 @@ And in two statefulness families:
     and keeps one f32 residual per dense fusion buffer (registry names
     take an ``+ef`` suffix).
 
-``Int8Codec`` quantises through ``repro_torch.kernels.ops.quantize_int8``:
-the CUDA kernel for CUDA tensors, its plain version for CPU tensors.  The
+``Int8Codec`` quantises through ``repro_torch.kernels.ops.quantize_int8``
+(``quantize_int8_ef`` under error feedback, which takes the residual's
+add and subtraction in) and sums gathered payloads through
+``ops.int8_decode_sum``: the CUDA kernels for CUDA tensors, their plain
+versions for CPU tensors.  The
 fp8 cast codecs of the reference are not carried: gloo refuses
 ``float8_e4m3fn`` in ``all_gather`` and ``all_reduce``.
 """
@@ -197,6 +200,12 @@ class Int8Codec(WireCodec):
         q, scale = ops.quantize_int8(buf)
         return q.reshape(buf.shape), scale
 
+    def encode_ef(self, buf, residual):
+        """The error-feedback encode in one call: ``(q, scale)`` of
+        ``buf + residual``, and the round trip's error left in
+        ``residual`` (flat f32, updated in place)."""
+        return ops.quantize_int8_ef(buf, residual)
+
     def decode(self, wire, scale, native_dtype):
         out = wire.to(torch.float32) * scale.to(torch.float32)
         return out.to(comm.torch_dtype(native_dtype))
@@ -255,6 +264,9 @@ class ErrorFeedbackCodec(WireCodec):
         residual per bucket is alive at any time."""
         if isinstance(state, tuple) and not state:   # zero-state stage
             wire, scale = self.inner.encode(buf)
+            return wire, scale, state
+        if isinstance(self.inner, Int8Codec):
+            wire, scale = self.inner.encode_ef(buf, state)
             return wire, scale, state
         state.add_(buf)                      # compensated = grad + residual
         wire, scale = self.inner.encode(state)
@@ -320,12 +332,23 @@ def get_codec(name) -> WireCodec:
                      f"optional {EF_SUFFIX!r} suffix)")
 
 
+def is_int8(codec: WireCodec) -> bool:
+    """True for the int8 wire, with or without error feedback."""
+    return isinstance(getattr(codec, "inner", codec), Int8Codec)
+
+
 def sum_decoded(codec: WireCodec, gathered_wire: torch.Tensor,
                 gathered_scales: Optional[torch.Tensor], n_chunks: int,
                 native_dtype) -> torch.Tensor:
     """Decode ``n_chunks`` per-worker payloads (stacked on dim 0 of a
     flat gathered buffer) and sum them — the post-gather reduction for
-    non-linear codecs.  Accumulates in f32 whatever the wire dtype."""
+    non-linear codecs.  Accumulates in f32 whatever the wire dtype; the
+    int8 codecs add the decodes in worker order in one pass
+    (``ops.int8_decode_sum``)."""
+    if is_int8(codec):
+        return ops.int8_decode_sum(gathered_wire, gathered_scales,
+                                   n_chunks).to(
+                                       comm.torch_dtype(native_dtype))
     chunks = gathered_wire.reshape((n_chunks, -1)).to(torch.float32)
     if gathered_scales is not None:
         chunks = chunks * gathered_scales.reshape(

@@ -387,8 +387,16 @@ class ExchangePlan:
         densified here.  Stateless linear codecs pack straight into the
         wire dtype; non-linear and stateful codecs pack f32 and encode
         afterwards (the absmax scale needs the full-precision buffer, and
-        the residual is added before narrowing)."""
+        the residual is added before narrowing).  The int8 codecs take a
+        single-slot bucket's f32 or bf16 leaf as it is: their encode
+        widens it exactly as the cast to f32 would."""
         codec = self.config.codec_obj
+        if codecs.is_int8(codec) and len(bucket.slots) == 1:
+            leaf_id = self.dense_leaf_ids[bucket.slots[0].leaf_idx]
+            x = _materialise(leaves[leaf_id], self.config).reshape(-1)
+            if x.dtype in (torch.float32, torch.bfloat16):
+                return x
+            return x.to(torch.float32)
         pack = comm.torch_dtype(bucket.wire_dtype
                                 if codec.linear and not codec.stateful
                                 else "float32")
@@ -431,7 +439,8 @@ class ExchangePlan:
         # quantised: every worker has its own scale, so the wire cannot
         # be reduced in flight — allgather (values, scales)
         if group is None:
-            return (codec.decode(wire, scale, torch.float32),), bstate
+            return (codecs.sum_decoded(codec, wire, scale, 1,
+                                       torch.float32),), bstate
         return (comm.all_gather_dense(wire, group),
                 comm.all_gather_dense(scale, group)), bstate
 

@@ -42,7 +42,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.densify import densify_kernel, densify_plain
 from repro_torch.kernels.flash_attention import (
     NEG_INF, flash_attention_kernel, flash_attention_plain)
-from repro_torch.kernels.quantize import quantize_kernel, quantize_plain
+from repro_torch.kernels.quantize import (
+    decode_sum_kernel, decode_sum_plain, quantize_ef_kernel,
+    quantize_ef_plain, quantize_kernel, quantize_plain)
 from repro_torch.kernels.ssd import ssd_kernel, ssd_plain
 
 ATTN_IMPLS = ("ref", "chunked", "kernel")
@@ -74,6 +76,40 @@ def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if flat.device.type == "cpu":
         return quantize_plain(flat)
     raise ValueError(f"quantize_int8: unsupported device {flat.device}")
+
+
+def quantize_int8_ef(flat: torch.Tensor, residual: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The error-feedback encode: quantise ``flat + residual`` (f32/bf16
+    buffer, f32 residual of as many elements) to ``(int8 (n,), f32
+    scale (1,))`` and leave ``compensated - decoded`` in ``residual``,
+    updated in place (the tensor keeps its identity)."""
+    flat = flat.reshape(-1)
+    if residual.dim() != 1 or residual.numel() != flat.numel():
+        raise ValueError(f"quantize_int8_ef: residual of shape "
+                         f"{tuple(residual.shape)} for {flat.numel()} "
+                         f"elements")
+    if flat.device.type == "cuda":
+        return quantize_ef_kernel(flat.contiguous(), residual)
+    if flat.device.type == "cpu":
+        return quantize_ef_plain(flat, residual)
+    raise ValueError(f"quantize_int8_ef: unsupported device {flat.device}")
+
+
+def int8_decode_sum(gathered_q: torch.Tensor, scales: torch.Tensor,
+                    n_chunks: int) -> torch.Tensor:
+    """Decode ``n_chunks`` int8 chunks stacked in ``gathered_q`` against
+    their f32 scales and sum them in chunk order -> f32 (n,)."""
+    gathered_q = gathered_q.reshape(-1)
+    scales = scales.reshape(-1)
+    if gathered_q.device.type == "cuda":
+        return decode_sum_kernel(gathered_q.contiguous(),
+                                 scales.to(torch.float32).contiguous(),
+                                 n_chunks)
+    if gathered_q.device.type == "cpu":
+        return decode_sum_plain(gathered_q, scales, n_chunks)
+    raise ValueError(f"int8_decode_sum: unsupported device "
+                     f"{gathered_q.device}")
 
 
 # ---------------------------------------------------------------------------
