@@ -15,14 +15,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
                version on the CPU and the memory one call allocates
                reported), then time kernel, plain version and one library
                call where there is one with CUDA events against the least
-               time the card could take;
+               time the card could take; densify also on the loss-scaled
+               step's f32 values (four 512-row slices concatenated), held
+               bitwise against the in-order plain version and timed;
      int8_wire_kernel — the int8 wire's fused kernels: the error-feedback
                encode (bf16 leaf and f32 residual in, q, scale and the
                residual updated in place) bitwise against
                ``quantize_ef_plain`` at every distinct stage size of the
                int8+ef plan, each with a residual a previous step left,
                and on edge cases (n = 0 and 1, ragged, a misaligned leaf
-               or residual, NaN, inf, f32 input, zeros), the stateless
+               or residual, NaN, inf, f32 input, zeros), the same encode
+               on f32 leaves (the loss-scaled step's) at every stage size
+               of that step's plan, the stateless
                bf16 encode at the same sizes, and the decode-sum bitwise
                against its in-order plain version for P = 1, 2 and 8;
                both timed at every stage size as device time with the L2
@@ -73,6 +77,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
                one decode-sum per dense stage, densify once a step, two
                allgathers per dense stage and three per gather stage, no
                allreduce;
+     overlap — the same launcher, 3 steps of dense_reduce with
+               ``--overlap staged`` and ``--overlap backward``, identity
+               and int8+ef wires: parameters, Adam state and residuals
+               bitwise equal to the fused run's, and the launches (densify
+               once a step, one fused encode and one decode-sum a dense
+               stage, no stateless encode, the plan's collectives) counted
+               with the counters reset before each run; then
+               ``make_scaled_train_step`` (``LossScaler()``, scale 2**15)
+               on the same 8 x 256 batch at M = 1 (fused, staged and
+               backward bitwise equal) and M = 4 (staged and backward
+               bitwise equal; fused, which sums all four microbatches
+               before the exchange, within ``DEFERRED_MU_TOL``; loss
+               within 1e-3 of M = 1's), wire dtypes as the reference's
+               (f32, bf16 only for the wait-free M = 1 step), with peak
+               memory; with int8+ef a NaN in the embedding must skip the
+               step (state bitwise, residuals rolled back and halved with
+               the scale) and ``growth_interval=2`` must double the scale
+               and every residual exactly;
   6. prefill — full-width transformer-big's prefill step on one
                32768-token sequence with 256 encoder states:
                ``forward(attn_impl="kernel")`` and ``head`` on the last
@@ -102,8 +124,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
  10. small   — the reduced transformer-big and zamba2-7b in f32 train 2
                steps each on the card and on the CPU, with the identity
                wire and with ``--codec int8 --error-feedback``, and the
-               losses must agree; then
-               its prefill step and 4 translate steps on the card (the
+               losses must agree; the reduced transformer-big takes one
+               loss-scaled step of 4 microbatches with
+               ``overlap="backward"`` on each device, losses within 1e-5;
+               then its prefill step and 4 translate steps on the card (the
                kernel's f32 path) and the CPU, logits within 3e-5; the
                reduced zamba2 the same (forward, 4-token prefix, 4 decode
                steps).
@@ -284,6 +308,14 @@ def phase_kernel(D, tokens) -> dict:
         ("randn_bf16", tok,
          torch.randn((tok.numel(), d), device=dev, generator=gen).to(
              torch.bfloat16), vocab, d),
+        # the loss-scaled step's input: four microbatches' 512-row slices
+        # of f32 rows (bf16 cotangents promoted by the f32 loss scale,
+        # 2**15 / 4), concatenated; inexact sums, so held bitwise against
+        # the in-order plain version on the CPU
+        ("loss_scaled_f32", tok,
+         torch.cat([(torch.randn((512, d), device=dev, generator=gen)
+                     * 1e-4).to(torch.bfloat16).float() * 2.0 ** 13
+                    for _ in range(4)]), vocab, d),
         # values 4 bytes off 16-byte alignment: the element-by-element form
         ("misaligned_f32", tok,
          vals(1, torch.float32, tok.numel() * d + 1)[0, 1:].view(-1, d),
@@ -311,6 +343,9 @@ def phase_kernel(D, tokens) -> dict:
                  f"(max abs err {err})")
         max_err = max(max_err, err)
         cpu = D.densify_plain(idx.cpu(), v.cpu(), (vb, width))
+        if name == "loss_scaled_f32" and not torch.equal(out.cpu(), cpu):
+            fail(f"densify {name}: kernel differs from the in-order plain "
+                 f"version on the CPU")
         print(json.dumps({"phase": "kernel", "kernel": "densify",
                           "case": name, "n": int(idx.numel()),
                           "vocab": vb, "d": width,
@@ -323,7 +358,20 @@ def phase_kernel(D, tokens) -> dict:
                           "output_bytes": out.numel() * out.element_size()}))
         del out, again, ref, cpu
 
-    _, idx, v, vb, width = cases[0]
+    timing = densify_timing(D, *cases[0][1:])
+    f32 = densify_timing(D, *next(c for c in cases
+                                  if c[0] == "loss_scaled_f32")[1:])
+    timing["f32"] = {k: f32[k] for k in (
+        "shape", "kernel_ms", "plain_ms", "library_ms", "back_to_back_ms",
+        "bound_ms", "bound_by", "bound_bytes")}
+    print(json.dumps(timing))
+    return {"max_abs_err": max_err, **timing}
+
+
+def densify_timing(D, idx, v, vb, width) -> dict:
+    """Device time of a densify call (kernel, plain version, the
+    library's ``index_add_``) beside its byte bound."""
+    dev = idx.device
     n = idx.numel()
     itemsize = v.element_size()
     nbytes = vb * width * itemsize + n * width * itemsize + 4 * n
@@ -348,16 +396,15 @@ def phase_kernel(D, tokens) -> dict:
         events_t[order] = min(events_t.get(order, t), t)
     ms, plain_ms, library_ms = dev_t["kernel"], dev_t["plain"], \
         dev_t["library"]
-    timing = {"phase": "kernel_timing", "kernel": "densify",
-              "shape": {"n": n, "vocab": vb, "d": width, "dtype": "bf16"},
-              "kernel_ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "measure": "device time a call",
-              "back_to_back_ms": events_t,
-              "library_call": "torch.zeros(vocab, d, float32).index_add_",
-              "bound_ms": bound_ms, "bound_by": "bytes",
-              "bound_bytes": nbytes}
-    print(json.dumps(timing))
-    return {"max_abs_err": max_err, **timing}
+    return {"phase": "kernel_timing", "kernel": "densify",
+            "shape": {"n": n, "vocab": vb, "d": width,
+                      "dtype": str(v.dtype).split(".")[-1]},
+            "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "measure": "device time a call",
+            "back_to_back_ms": events_t,
+            "library_call": "torch.zeros(vocab, d, float32).index_add_",
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_bytes": nbytes}
 
 
 FULL_WIDTH = ["--arch", "transformer-big", "--dist", "horovod",
@@ -513,20 +560,23 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(same.all().item())
 
 
-def int8_ef_stage_sizes(train) -> dict:
+def int8_ef_stage_sizes(train, scaled: bool = False) -> dict:
     """{elements: stages} of the int8+ef dense_reduce plan's dense
-    stages, each a single-slot bucket of a bf16 leaf."""
+    stages, each a single-slot bucket of a bf16 leaf; with ``scaled``,
+    the plan of the loss-scaled step's tree (the f32 loss scale promotes
+    every contribution, so every leaf is f32)."""
     plan = exchange_plan(train, FULL_WIDTH + [
         "--grad-accum", "dense_reduce", "--codec", "int8",
-        "--error-feedback"])
+        "--error-feedback"], scaled=scaled)
+    want = "float32" if scaled else "bfloat16"
     sizes = {}
     for st in plan.schedule.stages:
         bucket = plan.dense_buckets[st.bucket_id]
         if st.kind != "dense" or len(bucket.slots) != 1 or plan.leaf_specs[
                 plan.dense_leaf_ids[bucket.slots[0].leaf_idx]].dtype \
-                != "bfloat16":
+                != want:
             fail(f"int8+ef plan: stage {st} is not a single-slot bucket "
-                 f"of a bf16 leaf")
+                 f"of a {want} leaf")
         sizes[bucket.n_elems] = sizes.get(bucket.n_elems, 0) + 1
     return dict(sorted(sizes.items(), reverse=True))
 
@@ -547,6 +597,9 @@ def phase_int8_wire_kernel(Q, train) -> dict:
 
     def normal(n, dt=bf16, scale=1e-3):
         return (torch.randn(n, device=dev, generator=gen) * scale).to(dt)
+
+    def scaled_leaf(n):
+        return normal(n).float() * 2.0 ** 15
 
     def previous_residual(n, dt):
         # the residual one step of the plain version leaves behind
@@ -581,6 +634,13 @@ def phase_int8_wire_kernel(Q, train) -> dict:
     sizes = int8_ef_stage_sizes(train)
     for n in sizes:
         check_ef(f"stage_{n}", normal(n), previous_residual(n, bf16))
+    # the loss-scaled step's leaves: f32 (bf16 cotangents times 2**15)
+    scaled_sizes = int8_ef_stage_sizes(train, scaled=True)
+    if scaled_sizes != sizes:
+        fail(f"int8+ef: the loss-scaled plan's stages {scaled_sizes} are "
+             f"not the plan's {sizes}")
+    for n in scaled_sizes:
+        check_ef(f"stage_{n}_f32", scaled_leaf(n), previous_residual(n, f32))
 
     def poisoned(dt, values):
         x = normal(4099, dt)
@@ -648,6 +708,10 @@ def phase_int8_wire_kernel(Q, train) -> dict:
         x, r = normal(n), previous_residual(n, bf16)
         iters = 10 if n > 1 << 20 else 50
         enc = device_ms_cold(lambda: Q.quantize_ef_kernel(x, r), iters)
+        x32, r32 = scaled_leaf(n), previous_residual(n, f32)
+        enc32 = device_ms_cold(lambda: Q.quantize_ef_kernel(x32, r32), iters)
+        plain32 = device_ms_cold(lambda: Q.quantize_ef_plain(x32, r32),
+                                 min(iters, 10))
         g = torch.randint(-127, 128, (n,), device=dev, dtype=torch.int8,
                           generator=gen)
         sc = torch.rand(1, device=dev, generator=gen)
@@ -657,6 +721,12 @@ def phase_int8_wire_kernel(Q, train) -> dict:
             "encode_bound_ms": encode_bound(n),
             "encode_bound_bytes": 11 * n + 4,
             "encode_moves_bytes": 17 * n + 4,
+            # f32 leaf (the loss-scaled step): 4 B of x, 8 B of residual
+            # read and written, 1 B of q
+            "encode_f32_ms": enc32, "encode_f32_plain_ms": plain32,
+            "encode_f32_bound_ms": (13 * n + 4) / HBM_BYTES_PER_S * 1e3,
+            "encode_f32_bound_bytes": 13 * n + 4,
+            "encode_f32_moves_bytes": 21 * n + 4,
             "decode_sum_ms": dec,
             "decode_sum_bound_ms": (5 * n + 4) / HBM_BYTES_PER_S * 1e3,
             "decode_sum_bound_bytes": 5 * n + 4})
@@ -664,6 +734,10 @@ def phase_int8_wire_kernel(Q, train) -> dict:
         "encode_ms": sum(s["stages"] * s["encode_ms"] for s in per_stage),
         "encode_bound_ms": sum(s["stages"] * s["encode_bound_ms"]
                                for s in per_stage),
+        "encode_f32_ms": sum(s["stages"] * s["encode_f32_ms"]
+                             for s in per_stage),
+        "encode_f32_bound_ms": sum(s["stages"] * s["encode_f32_bound_ms"]
+                                   for s in per_stage),
         "decode_sum_ms": sum(s["stages"] * s["decode_sum_ms"]
                              for s in per_stage),
         "decode_sum_bound_ms": sum(s["stages"] * s["decode_sum_bound_ms"]
@@ -720,18 +794,23 @@ def phase_int8_wire_kernel(Q, train) -> dict:
     return timing
 
 
-def exchange_plan(train, argv):
+def exchange_plan(train, argv, scaled: bool = False):
     """The launcher's ExchangePlan for one worker's gradient tree (built
-    on meta tensors, as the launcher builds its codec state)."""
+    on meta tensors, as the launcher builds its codec state); with
+    ``scaled``, for that tree times an f32 loss scale (the loss-scaled
+    step's exchange)."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model
+    from repro_torch.training.microbatch import _scale_grad_tree
     args = train.parse_args(argv)
     cfg = get_config(args.arch)
     model = build_model(cfg)
     pipe = make_pipeline(cfg, args.batch_per_worker, args.seq_len,
                          seed=args.seed)
     grads = train.meta_worker_grads(args, model, pipe, True)
+    if scaled:
+        grads = _scale_grad_tree(grads, torch.ones((), device="meta"))
     return train.build_optimizer(args, cfg, None).plan(grads)
 
 
@@ -826,6 +905,430 @@ def phase_codec_path(train, D, Q, comm, path) -> dict:
             "decode_sum_launches": decode_sum_launches,
             "densify_launches": densify_launches}
 
+OVERLAPS = ([], ["--overlap", "staged"], ["--overlap", "backward"])
+WIRES = ([], ["--codec", "int8", "--error-feedback"])
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two tensors of any dtype, except that any NaN
+    equals any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    a, b = a.reshape(-1), b.reshape(-1)
+    same = (a.view(ints) == b.view(ints)) | (a.isnan() & b.isnan())
+    return bool(same.all().item())
+
+
+def train_state(params, opt_state, ex_state) -> list:
+    """Every tensor a step leaves behind: parameters, Adam moments and
+    step, error-feedback residuals."""
+    from repro_torch.tree import tree_flatten
+    return (tree_flatten(params)[0] + tree_flatten(opt_state.mu)[0]
+            + tree_flatten(opt_state.nu)[0] + [opt_state.step]
+            + [r for r in ex_state.bucket_states
+               if isinstance(r, torch.Tensor)])
+
+
+def differing(a: list, b: list) -> list:
+    if len(a) != len(b):
+        return [f"{len(a)} tensors vs {len(b)}"]
+    return [i for i, (x, y) in enumerate(zip(a, b)) if not same_bits(x, y)]
+
+
+def reset_counts(D, Q, comm) -> None:
+    Q.reset_launches()
+    D.densify_kernel.launches = 0
+    comm.all_gather_dense.calls = 0
+    comm.all_reduce_dense.calls = 0
+
+
+def read_counts(D, Q, comm) -> dict:
+    torch.cuda.synchronize()
+    return {"densify": D.densify_kernel.launches,
+            "quantize": Q.quantize_kernel.launches,
+            "quantize_ef": Q.quantize_ef_kernel.launches,
+            "decode_sum": Q.decode_sum_kernel.launches,
+            "all_reduce": comm.all_reduce_dense.calls,
+            "all_gather": comm.all_gather_dense.calls}
+
+
+def check_counts(tag, got, plan, steps) -> None:
+    """Launches a run of ``steps`` steps must make, from the plan: one
+    densify a step; under int8+ef one fused encode a dense stage and one
+    decode-sum a dense stage, no stateless encode; the plan's
+    collectives, allreduces for a linear wire and allgathers else."""
+    stages = plan.schedule.stages
+    n_dense = sum(st.kind == "dense" for st in stages)
+    int8 = plan.config.codec.startswith("int8")
+    want = {"densify": steps,
+            "quantize": steps * len(stages) if int8 else 0,
+            "quantize_ef": steps * n_dense if int8 else 0,
+            "decode_sum": steps * n_dense if int8 else 0,
+            "all_reduce": 0 if int8 else steps * plan.n_collectives,
+            "all_gather": steps * plan.n_collectives if int8 else 0}
+    if got != want:
+        fail(f"{tag}: launches {got}, want {want} from the plan "
+             f"({len(stages)} stages, {plan.n_collectives} collectives)")
+
+
+def phase_overlap(train, D, Q, comm) -> dict:
+    """The overlapped exchange on full-width transformer-big, world of 1
+    over NCCL: the launcher's staged and wait-free steps bitwise against
+    its fused one, then the loss-scaled step with 4 microbatches (fused,
+    staged, backward; bitwise), its overflow rollback and its growth
+    rescale.  Returns the kernel launches the phase's runs made."""
+    quiet = lambda s: None
+    launches = {"densify": 0, "quantize": 0, "quantize_ef": 0,
+                "decode_sum": 0}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    steps = 3
+    for wire in WIRES:
+        argv = FULL_WIDTH + ["--grad-accum", "dense_reduce", "--steps",
+                             str(steps)] + wire
+        fused = None
+        for ov in OVERLAPS:
+            tag = f"overlap launcher {ov[1:] or ['fused']} {wire[1:2]}"
+            plan = exchange_plan(train, argv + ov)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(D, Q, comm)
+            result = train.run(argv + ov, log=quiet)
+            got = read_counts(D, Q, comm)
+            check_counts(tag, got, plan, steps)
+            add(got)
+            losses = [h["loss"] for h in result["history"]]
+            if len(losses) != steps or not all(map(math.isfinite, losses)):
+                fail(f"{tag}: losses {losses}")
+            state = train_state(result["params"], result["opt_state"],
+                                result["exchange_state"])
+            hist = result["history"]
+            steady = [h["step_ms"] for h in hist[1:]]
+            line = {"phase": "overlap_launcher",
+                    "overlap": ov[1] if ov else "fused",
+                    "codec": plan.config.codec, "steps": steps,
+                    "losses": losses, "launches": got,
+                    "stages": plan.schedule.n_stages,
+                    "n_collectives_per_step": plan.n_collectives,
+                    "step_ms_median_after_first": statistics.median(steady),
+                    "max_memory_allocated":
+                        torch.cuda.max_memory_allocated()}
+            if fused is None:
+                fused = (state, losses)
+            else:
+                bad = differing(state, fused[0])
+                if bad or losses != fused[1]:
+                    fail(f"{tag}: differs from the fused run bitwise in "
+                         f"tensors {bad[:10]} of {len(state)} (losses "
+                         f"{losses} vs {fused[1]})")
+                line["bitwise_vs_fused"] = True
+            print(json.dumps(line))
+            del result, state
+        del fused
+        torch.cuda.empty_cache()
+
+    scaled = phase_overlap_scaled(train, D, Q, comm)
+    add(scaled["launches"])
+    return {**scaled, "launches": launches}
+
+
+def phase_overlap_scaled(train, D, Q, comm) -> dict:
+    """``make_scaled_train_step`` at full width on the 8 x 256 batch."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.training import LossScaler, make_scaled_train_step
+    from repro_torch.tree import tree_flatten
+
+    device = train.resolve_device("cuda")
+    _, _, created = train.init_distributed(device)
+    launches = {"densify": 0, "quantize": 0, "quantize_ef": 0,
+                "decode_sum": 0}
+    out = {}
+    try:
+        cfg = get_config("transformer-big")
+        model = build_model(cfg)
+        pipe = make_pipeline(cfg, 8, 256, seed=0)
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in pipe.batch_at(0).items()}
+        # the control: the last of four microbatches from another batch
+        wrong = {k: torch.cat([v[:6], torch.from_numpy(
+                     pipe.batch_at(1)[k][6:]).to(device)])
+                 for k, v in batch.items()}
+        params = model.init(seed=0, device=device)
+        meta_args = train.parse_args(FULL_WIDTH)
+        meta = train.meta_worker_grads(meta_args, model, pipe, True)
+
+        def build(wire, ov, scaler, n):
+            argv = FULL_WIDTH + ["--grad-accum", "dense_reduce"] + wire + ov
+            opt = train.build_optimizer(train.parse_args(argv), cfg,
+                                        dist.group.WORLD)
+            step = make_scaled_train_step(model, opt, scaler,
+                                          n_microbatches=n,
+                                          sparse_embedding=True)
+            return opt, step
+
+        def run(wire, ov, n, scaler=LossScaler(), start=None, b=batch):
+            """One step from ``start`` (params, opt state, scaler state,
+            exchange state) or from the initial state; returns the step's
+            outputs, its launches and its memory: allocated before it
+            (the state and this phase's kept copies) and its peak."""
+            opt, step = build(wire, ov, scaler, n)
+            plans = []
+            plan_of = opt.plan
+            opt.plan = lambda g: plans.append(plan_of(g)) or plans[-1]
+            if start is None:
+                start = (params, opt.init(params), scaler.init(device),
+                         opt.init_exchange_state(meta, device=device))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(D, Q, comm)
+            t0 = time.perf_counter()
+            res = step(*start, b)
+            got = read_counts(D, Q, comm)
+            wall = time.perf_counter() - t0
+            # the plan the step exchanged through (the last one compiled:
+            # the exchange state's own plan came first)
+            return res, got, plans[-1], {
+                "allocated_before": base,
+                "peak_above_allocated_before":
+                    torch.cuda.max_memory_allocated() - base,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "step_s": wall}
+
+        for wire in WIRES:
+            codec = "int8+ef" if wire else "identity"
+            runs = {}
+            for n in (1, 4):
+                for ov in OVERLAPS:
+                    mode = ov[1] if ov else "fused"
+                    tag = f"scaled M={n} {mode} {codec}"
+                    res, got, plan, mem = run(wire, ov, n)
+                    check_counts(tag, got, plan, 1)
+                    for k in launches:
+                        launches[k] += got[k]
+                    m = res[4]
+                    loss = float(m["loss"])
+                    if bool(m["overflow"]) or not math.isfinite(loss):
+                        fail(f"{tag}: overflow {bool(m['overflow'])}, "
+                             f"loss {loss}")
+                    wire_dtypes = sorted({b.wire_dtype
+                                          for b in plan.dense_buckets})
+                    # the f32 loss scale promotes every contribution but
+                    # the wait-free M = 1 step's own cotangents
+                    want = ("int8" if wire else str(params["embedding"].dtype)
+                            .split(".")[-1] if (n, mode) == (1, "backward")
+                            else "float32")
+                    if wire_dtypes != [want]:
+                        fail(f"{tag}: wire dtypes {wire_dtypes}, want "
+                             f"{[want]} (the reference's)")
+                    line = {"phase": "overlap_scaled", "overlap": mode,
+                            "codec": codec, "microbatches": n,
+                            "loss": loss, "launches": got,
+                            "wire_dtypes": wire_dtypes,
+                            "wire_bytes_p8": plan.wire_bytes(8),
+                            "memory": mem}
+                    # a copy: the overflow check below rolls this step's
+                    # residuals back in place
+                    runs[n, mode] = ([t.clone() for t in train_state(
+                        res[0], res[1], res[3])], loss, line,
+                        len(tree_flatten(res[0])[0]), plan)
+                    if wire and n == 4:
+                        overflow_and_growth(run, wire, ov, res, tag)
+                    del res
+                compare_scaled(runs, n, codec)
+                if n == 4:
+                    control_scaled(run, wire, runs, codec, wrong)
+                for mode in ("fused", "staged", "backward"):
+                    print(json.dumps(runs[n, mode][2]))
+                    out[f"{codec}/M{n}/{mode}"] = runs[n, mode][2]
+                if n == 1:
+                    loss1 = runs[1, "fused"][1]
+                    runs.clear()
+            loss4 = runs[4, "fused"][1]
+            if abs(loss4 - loss1) > 1e-3 * abs(loss1):
+                fail(f"scaled {codec}: loss {loss4} at M = 4 vs {loss1} "
+                     f"at M = 1")
+            del runs
+            torch.cuda.empty_cache()
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return {"launches": launches, "scaled": out}
+
+# Fused M = 4 sums the four microbatches' bf16 gradients before the
+# exchange; staged and backward sum three and add the fourth inside it,
+# after the f32 loss scale (so do the reference's paths: its own test
+# holds them at rtol 1e-5 in f32, tests/test_microbatch.py).  One bf16
+# rounding of the sum apart, at most 2**-9 of an element, so Adam's
+# first moment (0.1 g) agrees within relative L2 2**-7 per leaf.  The
+# same bounds hold the wait-free M = 1 step, which exchanges bf16 where
+# the others exchange f32: its tied embedding sums in bf16, and on the
+# int8 wire every decoded gradient is rounded to bf16 at unpack.  On the
+# int8 wire that difference moves a quantised element by one step of its
+# bucket's absmax / 127 wherever it straddles a rounding boundary; read
+# on an H100 80GB HBM3 at 700 W, the worst leaf's distance was 0.01325
+# (M = 1) and 0.02691 (M = 4), so 2**-4 there, 2.3x the larger reading.
+# The control (``control_scaled``: one of the four microbatches taken
+# from another batch) must land above both limits.  Staged and backward
+# run the same deferred sum and are held to each other bitwise, as the
+# reference holds them (tests/test_wait_free.py).
+DEFERRED_MU_TOL = {"identity": 2.0 ** -7, "int8+ef": 2.0 ** -4}
+
+
+def rounded_tensors(plan, n_p) -> set:
+    """Indices in ``train_state`` that a plan exchanging the leaves in
+    their own bf16 (the wait-free M = 1 step) may round differently from
+    one exchanging f32: the leaves with several contributions (the tied
+    embedding: densified rows cast once, plus the dense projection
+    gradient, summed in bf16), their Adam moments and their stages'
+    residuals; on a quantised wire also every leaf and its moments (the
+    decoded f32 gradient is cast to the leaf's dtype at unpack)."""
+    summed = {i for i, c in enumerate(plan.contrib_specs) if len(c) > 1}
+    leaves = (set(range(n_p)) if not plan.config.codec_obj.linear
+              else summed)
+    out = {k * n_p + i for i in leaves for k in range(3)}
+    dense = [st for st in plan.schedule.stages if st.kind == "dense"]
+    out |= {3 * n_p + 1 + r for r, st in enumerate(dense)
+            if summed & set(st.leaf_ids)}
+    return out
+
+
+def mu_rel_l2(got, want, n_p) -> float:
+    """Worst relative L2 distance over the leaves of Adam's first
+    moment (0.1 of the exchanged gradient after one step)."""
+    worst = 0.0
+    for i in range(n_p, 2 * n_p):
+        a, b = got[i].float(), want[i].float()
+        worst = max(worst, float((a - b).norm()
+                                 / b.norm().clamp(min=1e-30)))
+    return worst
+
+
+def compare_scaled(runs, n, codec) -> None:
+    """The loss-scaled step's three paths at one microbatch count.
+    M = 1: staged bitwise fused; backward, which exchanges the leaves in
+    bf16 (the reference's wire there), bitwise fused but for
+    ``rounded_tensors``, held within ``DEFERRED_MU_TOL``.  M = 4: staged
+    and backward bitwise; fused within ``DEFERRED_MU_TOL`` on Adam's
+    first moment.  Losses bitwise throughout."""
+    fused, staged, backward = (runs[n, m] for m in
+                               ("fused", "staged", "backward"))
+    n_p, tol = fused[3], DEFERRED_MU_TOL[codec]
+    pairs = ([("staged", staged, fused, set()),
+              ("backward", backward, fused,
+               rounded_tensors(backward[4], n_p))]
+             if n == 1 else [("backward", backward, staged, set())])
+    for name, got, want, allowed in pairs:
+        bad = differing(got[0], want[0])
+        if set(bad) - allowed or got[1] != want[1]:
+            fail(f"scaled M={n} {codec} {name}: differs bitwise in tensors "
+                 f"{bad[:10]} of {len(got[0])} (allowed {sorted(allowed)})")
+        got[2]["bitwise_vs"] = "fused" if n == 1 else "staged"
+        if allowed:
+            rel = mu_rel_l2(got[0], want[0], n_p)
+            if rel > tol:
+                fail(f"scaled M={n} {codec} {name}: Adam mu relative L2 "
+                     f"{rel} vs fused (limit {tol})")
+            got[2].update(bitwise_but=sorted(bad), mu_rel_l2_vs_fused=rel,
+                          mu_tol=tol)
+    if n == 1:
+        return
+    worst = mu_rel_l2(staged[0], fused[0], n_p)
+    if worst > tol or staged[1] != fused[1]:
+        fail(f"scaled M=4 {codec}: deferred vs fused Adam mu relative L2 "
+             f"{worst} (limit {tol}), losses {staged[1]} vs {fused[1]}")
+    differ = sum(int((staged[0][i] != fused[0][i]).sum())
+                 for i in range(n_p))
+    total = sum(staged[0][i].numel() for i in range(n_p))
+    for got in (staged, backward):
+        got[2].update(mu_rel_l2_vs_fused=worst, mu_tol=tol,
+                      params_differing_from_fused=differ,
+                      params_total=total)
+
+
+def control_scaled(run, wire, runs, codec, wrong) -> None:
+    """The fused M = 4 step with its last microbatch taken from another
+    batch: a wrong step that ``DEFERRED_MU_TOL`` must refuse.  Its Adam
+    first moment's distance from the right step's is recorded beside the
+    readings the limit passes."""
+    fused = runs[4, "fused"]
+    ctl, _, _, _ = run(wire, [], 4, b=wrong)
+    reading = mu_rel_l2(train_state(ctl[0], ctl[1], ctl[3]), fused[0],
+                        fused[3])
+    del ctl
+    if reading <= DEFERRED_MU_TOL[codec]:
+        fail(f"scaled M=4 {codec}: a wrong microbatch moves Adam mu by "
+             f"relative L2 {reading}, within the limit "
+             f"{DEFERRED_MU_TOL[codec]}: the limit would pass it")
+    for mode in ("fused", "staged", "backward"):
+        runs[4, mode][2]["control_wrong_microbatch_mu_rel_l2"] = reading
+
+
+def overflow_and_growth(run, wire, ov, good, tag) -> None:
+    """From a good int8+ef step's state: a NaN in the embedding must
+    overflow, leave parameters and optimizer state bitwise as they were,
+    roll every residual back to its value before the step (then times
+    new / old scale = 0.5, as the reference rescales) and halve the
+    scale; and with ``growth_interval=2`` a second good step must double
+    the scale and every residual exactly against the same step without
+    growth."""
+    from repro_torch.training import LossScaler
+    params, opt_state, ss, ex, _ = good
+
+    def clone_ex(e):
+        return type(e)([r.clone() if isinstance(r, torch.Tensor) else r
+                        for r in e.bucket_states])
+
+    # growth: step 1 was good (good_steps 1); step 2 with and without it
+    grow, hold = LossScaler(growth_interval=2), LossScaler(
+        growth_interval=1 << 30)
+    (pg, sg, ssg, exg, mg), _, _, _ = run(
+        wire, ov, 4, grow, (params, opt_state, ss, clone_ex(ex)))
+    (ph, sh, ssh, exh, mh), _, _, _ = run(
+        wire, ov, 4, hold, (params, opt_state, ss, clone_ex(ex)))
+    if bool(mg["overflow"]) or float(ssg.scale) != 2 * float(ss.scale) \
+            or float(ssh.scale) != float(ss.scale):
+        fail(f"{tag} growth: scale {float(ss.scale)} -> "
+             f"{float(ssg.scale)} (held {float(ssh.scale)})")
+    rg = train_state(pg, sg, exg)
+    rh = train_state(ph, sh, exh)
+    n_res = sum(isinstance(r, torch.Tensor) for r in exg.bucket_states)
+    bad = differing(rg[:-n_res], rh[:-n_res])
+    if bad or differing(rg[-n_res:], [r * 2 for r in rh[-n_res:]]):
+        fail(f"{tag} growth: state or residuals not exactly twice the "
+             f"held step's ({bad[:10]})")
+    del pg, sg, exg, ph, sh, exh, rg, rh
+
+    bad_params = dict(params)
+    bad_params["embedding"] = params["embedding"].clone()
+    bad_params["embedding"][0, 0] = float("nan")
+    before = [t.clone() for t in train_state(bad_params, opt_state, ex)]
+    (p2, s2, ss2, ex2, m2), _, _, _ = run(
+        wire, ov, 4, LossScaler(), (bad_params, opt_state, ss, ex))
+    after = train_state(p2, s2, ex2)
+    n_res = sum(isinstance(r, torch.Tensor) for r in ex2.bucket_states)
+    if not bool(m2["overflow"]):
+        fail(f"{tag} overflow: a NaN parameter did not overflow")
+    bad = differing(after[:-n_res], before[:-n_res])
+    bad_res = differing(after[-n_res:], [r * 0.5 for r in before[-n_res:]])
+    if bad or bad_res or float(ss2.scale) != 0.5 * float(ss.scale):
+        fail(f"{tag} overflow: state changed in tensors {bad[:10]}, "
+             f"residuals {bad_res[:10]}, scale {float(ss2.scale)}")
+    print(json.dumps({"phase": "overflow_growth", "case": tag,
+                      "overflow_rollback_bitwise": True,
+                      "residuals_after_overflow": "before x 0.5, bitwise",
+                      "growth_scale": float(ssg.scale),
+                      "growth_residuals": "held x 2, bitwise"}))
+
 
 def phase_small_reference(train) -> None:
     """The reduced configs in f32 train the same on the card (kernels)
@@ -855,6 +1358,83 @@ def phase_small_reference(train) -> None:
             print(json.dumps({"phase": "small_reference", "arch": arch,
                               "codec": codec[1:], "card_losses": lc,
                               "cpu_losses": lh}))
+    small_scaled_backward()
+
+
+def small_scaled_backward() -> None:
+    """The reduced transformer-big in f32: two loss-scaled steps of 4
+    microbatches with ``overlap="backward"`` on the card and on the CPU
+    (the local exchange path, no process group), each wire.  The first
+    loss (the forward alone) within relative 1e-5; Adam's first moment
+    after step 1 (0.1 of the exchanged, unscaled gradient: the wait-free
+    backward, the hooked exchange and the unscale) within
+    ``SMALL_MU_TOL``; the second loss, which reads step 1's update,
+    within relative 1e-4, the small phase's tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DistributedOptimizer, ExchangeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import LossScaler, make_scaled_train_step
+    from repro_torch.training.gradients import grad_contributions
+    from repro_torch.tree import tree_flatten
+    model = build_model(get_config("transformer-big").reduced())
+    np_batch = make_pipeline(model.cfg, 8, 32).batch_at(0)
+    for codec in ("identity", "int8+ef"):
+        losses, mu = {}, {}
+        for dev in ("cuda", "cpu"):
+            params = model.init(seed=0, device=dev)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in np_batch.items()}
+            opt = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(
+                sparse_as_dense=True, codec=codec, overlap="backward",
+                use_kernel=True))
+            step = make_scaled_train_step(model, opt, LossScaler(),
+                                          n_microbatches=4,
+                                          sparse_embedding=True)
+            g = grad_contributions(model, params, batch,
+                                   sparse_embedding=True)[0]
+            state = (params, opt.init(params), LossScaler().init(dev),
+                     opt.init_exchange_state(g))
+            losses[dev] = []
+            for k in range(2):
+                *state, m = step(*state, batch)
+                if bool(m["overflow"]):
+                    fail(f"small scaled backward {codec} {dev}: overflow")
+                losses[dev].append(float(m["loss"]))
+                if k == 0:
+                    mu[dev] = [t.cpu() for t in tree_flatten(state[1].mu)[0]]
+        (c1, c2), (h1, h2) = losses["cuda"], losses["cpu"]
+        rel = [float((a - b).norm() / b.norm().clamp(min=1e-30))
+               for a, b in zip(mu["cuda"], mu["cpu"])]
+        whole = float(torch.cat([(a - b).reshape(-1) for a, b in
+                                 zip(mu["cuda"], mu["cpu"])]).norm()
+                      / torch.cat([b.reshape(-1)
+                                   for b in mu["cpu"]]).norm())
+        limit = SMALL_MU_TOL[codec]
+        got = max(rel) if codec == "identity" else whole
+        if not (math.isclose(c1, h1, rel_tol=1e-5)
+                and math.isclose(c2, h2, rel_tol=1e-4) and got <= limit):
+            fail(f"small scaled backward {codec}: card losses {c1}, {c2} "
+                 f"vs cpu {h1}, {h2}; Adam mu relative L2 {got} "
+                 f"(limit {limit})")
+        print(json.dumps({"phase": "small_scaled_backward", "codec": codec,
+                          "microbatches": 4, "card_losses": [c1, c2],
+                          "cpu_losses": [h1, h2],
+                          "mu_worst_leaf_rel_l2": max(rel),
+                          "mu_tree_rel_l2": whole, "mu_tol": limit,
+                          "tol": "loss 1: rel 1e-5, loss 2: rel 1e-4"}))
+
+
+# Adam's first moment after one f32 step, card against CPU.  Identity:
+# both devices compute the same f32 gradient in other summation orders
+# (relative error ~1e-6), so the worst leaf within 1e-4, the small
+# phase's tolerance.  int8+ef: where the two f32 sums straddle a rounding
+# boundary an int8 element moves by one step (its bucket's absmax / 127,
+# some 1e-6 of the elements), which in a small leaf alone is several
+# 1e-3 of its norm; so the whole tree within 2**-7.  A step that is not
+# unscaled is off by 2**15, one that loses a microbatch by ~0.8.
+SMALL_MU_TOL = {"identity": 1e-4, "int8+ef": 2.0 ** -7}
 
 
 # ---------------------------------------------------------------------------
@@ -1896,6 +2476,8 @@ def main() -> int:
     path = clock("path", phase_path, train, D, comm)
     codec = clock("codec", phase_codec_path, train, D, Q, comm, path)
     torch.cuda.empty_cache()
+    overlap = clock("overlap", phase_overlap, train, D, Q, comm)
+    torch.cuda.empty_cache()
     model = build_model(get_config("transformer-big"))
     params = model.init(seed=0, device="cuda")
     prefill = clock("prefill", phase_prefill, model, params, FA)
@@ -1919,22 +2501,34 @@ def main() -> int:
         "name": "densify", "route": "cuda",
         "source": "src/repro_torch/csrc/densify.cu",
         "replaces": "src/repro/kernels/densify.py:40",
-        "launches": path["densify_launches"] + codec["densify_launches"],
+        "launches": path["densify_launches"] + codec["densify_launches"]
+        + overlap["launches"]["densify"],
+        "launches_by_phase": {"path": path["densify_launches"],
+                              "codec": codec["densify_launches"],
+                              "overlap": overlap["launches"]["densify"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"]}, {
+        "library_ms": kern["library_ms"],
+        "f32": {k: kern["f32"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}, {
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:29",
         "entry_points": ["repro_quantize_int8_ef", "repro_quantize_int8",
                          "repro_int8_decode_sum"],
-        "launches": codec["quantize_launches"],
+        "launches": codec["quantize_launches"]
+        + overlap["launches"]["quantize"],
         "launches_by_entry": {
-            "repro_quantize_int8_ef": codec["quantize_ef_launches"],
+            "repro_quantize_int8_ef": codec["quantize_ef_launches"]
+            + overlap["launches"]["quantize_ef"],
             "repro_quantize_int8": codec["quantize_launches"]
-            - codec["quantize_ef_launches"],
-            "repro_int8_decode_sum": codec["decode_sum_launches"]},
+            - codec["quantize_ef_launches"]
+            + overlap["launches"]["quantize"]
+            - overlap["launches"]["quantize_ef"],
+            "repro_int8_decode_sum": codec["decode_sum_launches"]
+            + overlap["launches"]["decode_sum"]},
         "max_abs_err": qkern["max_abs_err"],
         "ms": wire["kernel_ms"], "plain_ms": wire["plain_ms"],
         "unfused_ms": wire["unfused_ms"],
@@ -1943,8 +2537,13 @@ def main() -> int:
         "stateless_f32": {k: qkern[k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-        "decode_sum": {"launches": codec["decode_sum_launches"],
+        "decode_sum": {"launches": codec["decode_sum_launches"]
+                       + overlap["launches"]["decode_sum"],
                        **wire["decode_sum"][1]},
+        "f32_leaf": {
+            "per_step_ms": wire["per_step"]["encode_f32_ms"],
+            "per_step_bound_ms": wire["per_step"]["encode_f32_bound_ms"],
+            "bound_by": "bytes"},
         "per_step": wire["per_step"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",

@@ -12,8 +12,13 @@ collectives over a process group (NCCL on the card, gloo on the CPU).
 Every function takes ``group``: a ``torch.distributed`` process group, or
 ``None`` for the local path, where each collective is a no-op (the
 reference's ``axis_name=None``).  Collectives never modify their inputs.
-Each collective function counts its calls in ``<fn>.calls``, the
-comm-layer audit of how many collectives a step issued.
+Each collective function counts its calls in ``<fn>.calls`` when it
+issues the collective, the comm-layer audit of how many collectives a
+step issued.  A collective over a group returns a ``Pending`` at once
+(the work is in flight, its buffers held) and ``wait`` finishes it: the
+fused exchange finishes each stage as soon as it is launched, the staged
+and wait-free exchanges launch every stage's collective before any stage
+unpacks.
 
 ``*_bytes`` helpers give the exact wire size of each collective (static
 functions of shapes), shared with the reference's accounting.
@@ -63,28 +68,54 @@ def axis_size(group: Group) -> int:
 # Dense exchange (the paper's fix: accumulate by REDUCTION)
 # ---------------------------------------------------------------------------
 
-def all_reduce_dense(x: torch.Tensor, group: Group,
-                     average: bool = True) -> torch.Tensor:
-    """Dense allreduce across the group (Horovod allreduce)."""
+class Pending:
+    """An issued collective: its work handle, the buffers it reads and
+    writes (held until it finishes), and the step that turns its output
+    into the result once the work is done."""
+
+    __slots__ = ("_work", "_buffers", "_finish")
+
+    def __init__(self, work, buffers, finish):
+        self._work, self._buffers, self._finish = work, buffers, finish
+
+    def wait(self) -> torch.Tensor:
+        """Wait for the work (on the card: order the current stream after
+        it) and return the result; the buffers are released."""
+        self._work.wait()
+        out = self._finish()
+        self._work = self._buffers = self._finish = None
+        return out
+
+
+def wait(x):
+    """The result of ``x``: a ``Pending`` finished, anything else as it
+    is (the local path's no-op collectives return their input)."""
+    return x.wait() if isinstance(x, Pending) else x
+
+
+def all_reduce_dense(x: torch.Tensor, group: Group, average: bool = True):
+    """Dense allreduce across the group (Horovod allreduce), returned as
+    a ``Pending``."""
     if group is None:
         return x
     out = x.clone()
-    dist.all_reduce(out, group=group)
+    work = dist.all_reduce(out, group=group, async_op=True)
     all_reduce_dense.calls += 1
-    if average:
-        out = out / axis_size(group)
-    return out
+    finish = ((lambda: out / axis_size(group)) if average
+              else (lambda: out))
+    return Pending(work, (x, out), finish)
 
 
-def all_gather_dense(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """Tiled allgather over dim 0, in rank order."""
+def all_gather_dense(x: torch.Tensor, group: Group):
+    """Tiled allgather over dim 0, in rank order, returned as a
+    ``Pending``."""
     if group is None:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(axis_size(group))]
-    dist.all_gather(parts, x, group=group)
+    work = dist.all_gather(parts, x, group=group, async_op=True)
     all_gather_dense.calls += 1
-    return torch.cat(parts)
+    return Pending(work, (x, parts), lambda: torch.cat(parts))
 
 
 all_reduce_dense.calls = 0

@@ -11,7 +11,9 @@ statically compiled ``ExchangePlan`` per gradient-tree structure
 codec's ``ExchangeState`` (error-feedback residuals for ``"int8+ef"``,
 empty entries for a stateless codec) is threaded through
 ``exchange(grads, state) -> (tree, state)``; ``init_exchange_state``
-builds the first.
+builds the first.  ``exchange`` honours ``ExchangeConfig.overlap``;
+``exchange_scheduled`` and ``exchange_fused`` take one path whatever it
+says.
 """
 from __future__ import annotations
 
@@ -60,8 +62,23 @@ class DistributedOptimizer:
     def exchange(self, grads, state: Optional[ExchangeState] = None):
         """Accumulate, exchange across the group, densify: returns
         ``(the dense gradient tree every worker applies, new
-        ExchangeState)``.  ``state`` may be left out for a stateless
-        codec."""
+        ExchangeState)``.  Honours ``exchange_config.overlap`` (staged
+        or fused).  ``state`` may be left out for a stateless codec."""
+        return self.plan(grads).execute(grads, self.group,
+                                        average=self.average, state=state)
+
+    def exchange_scheduled(self, grads,
+                           state: Optional[ExchangeState] = None):
+        """Staged exchange whatever ``overlap`` says: every stage's
+        collective launches, in reverse-layer order and interleaved with
+        the per-stage accumulate and pack, before any stage unpacks."""
+        return self.plan(grads).execute_scheduled(grads, self.group,
+                                                  average=self.average,
+                                                  state=state)
+
+    def exchange_fused(self, grads, state: Optional[ExchangeState] = None):
+        """Serial path whatever ``overlap`` says: each stage finishes
+        before the next launches."""
         return self.plan(grads).execute_fused(grads, self.group,
                                               average=self.average,
                                               state=state)

@@ -19,10 +19,16 @@ it compiles, once:
 ``execute_fused`` runs the stages serially: accumulate, pack (the
 densification of deferred-sparse leaves happens here, through the
 densify kernel when ``use_kernel`` is set), encode, the stage's
-collectives, decode, unpack.  Linear codecs allreduce the wire;
-non-linear ones (int8) allgather (values, scales) and sum after decode.
-Every codec threads an ``ExchangeState`` through ``execute_fused`` (empty
-entries for stateless codecs).
+collectives, decode, unpack.  ``execute_scheduled`` runs the same
+per-stage ops but launches every stage's collective (asynchronously)
+before any stage unpacks; ``execute`` picks one by
+``ExchangeConfig.overlap``.  Under ``overlap="backward"`` buckets are
+snapped to top-level blocks, so ``backward_block_stages`` can hand each
+block's stages to a hook inside the backward pass
+(``training.gradients.wait_free_grad_exchange``).  Linear codecs
+allreduce the wire; non-linear ones (int8) allgather (values, scales)
+and sum after decode.  Every codec threads an ``ExchangeState`` through
+the exchange (empty entries for stateless codecs).
 The plan is the single source of the byte accounting (``wire_bytes`` /
 ``buffer_bytes`` / ``n_collectives`` / ``state_bytes``), which equals the
 reference plan's for the same tree exactly.
@@ -56,11 +62,29 @@ class ExchangeConfig:
     use_kernel: bool = False                 # densify kernel
     codec: str = "identity"                  # WireCodec registry name
     error_feedback: bool = False             # -> codec="<codec>+ef"
+    overlap: Union[bool, str] = False        # False | "staged" | "backward".
+    #                                          "staged" (legacy True): every
+    #                                          bucket's collective launches
+    #                                          before any unpacks.
+    #                                          "backward": buckets snap to
+    #                                          top-level blocks and launch
+    #                                          from inside the backward pass
 
     def __post_init__(self):
         if self.algorithm not in ("tf_algorithm1", "proposed_algorithm2"):
             raise ValueError(
                 f"unknown accumulation algorithm: {self.algorithm}")
+        # normalise overlap onto False | "staged" | "backward" so legacy
+        # bool configs compare, hash and cache as the string spellings
+        ov = self.overlap
+        if ov in (False, None, "none", "off"):
+            ov = False
+        elif ov in (True, "staged", "on"):
+            ov = "staged"
+        elif ov != "backward":
+            raise ValueError(f"unknown overlap mode: {self.overlap!r} "
+                             f"(expected False, 'staged' or 'backward')")
+        object.__setattr__(self, "overlap", ov)
         if self.error_feedback:
             name = codecs.get_codec(self.codec).name
             if not name.endswith(codecs.EF_SUFFIX):
@@ -73,6 +97,11 @@ class ExchangeConfig:
     @property
     def codec_obj(self) -> codecs.WireCodec:
         return codecs.get_codec(self.codec)
+
+    @property
+    def overlap_backward(self) -> bool:
+        """Wait-free backprop: collectives launch mid-backward."""
+        return self.overlap == "backward"
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +259,9 @@ class BucketStage:
     kind: str                    # "dense" | "gather"
     bucket_id: int               # index into dense_buckets, or the leaf id
     leaf_ids: Tuple[int, ...]
+    trigger: str = ""            # top-level block whose backward emission
+    #                              makes the stage launchable (the block
+    #                              of the ready_key leaf)
 
     @property
     def ready_key(self) -> int:
@@ -257,6 +289,7 @@ class ExchangePlan:
     gather_leaf_ids: Tuple[int, ...]
     config: ExchangeConfig
     schedule: BucketSchedule
+    leaf_blocks: Tuple[str, ...] = ()    # top-level block of every leaf
 
     # -- static accounting ---------------------------------------------------
     @property
@@ -434,8 +467,7 @@ class ExchangePlan:
         if codec.linear:
             if group is None:
                 return (wire,), bstate
-            return (comm.all_reduce_dense(wire, group, average=False),), \
-                bstate
+            return (comm.all_reduce_dense(wire, group, average=False),), bstate
         # quantised: every worker has its own scale, so the wire cannot
         # be reduced in flight — allgather (values, scales)
         if group is None:
@@ -447,7 +479,8 @@ class ExchangePlan:
     def _finish_dense(self, stage: BucketStage, inflight: Tuple,
                       out: List[Any], inv_scale: Optional[float],
                       p: int) -> None:
-        """Decode-sum (gathered non-linear payloads) + unpack."""
+        """Wait, decode-sum (gathered non-linear payloads) + unpack."""
+        inflight = tuple(comm.wait(x) for x in inflight)
         buf = inflight[0]
         if len(inflight) == 2:
             buf = codecs.sum_decoded(self.config.codec_obj, inflight[0],
@@ -468,7 +501,8 @@ class ExchangePlan:
         g_scales = (comm.all_gather_dense(scale, group)
                     if scale is not None else None)
         return (comm.all_gather_dense(s.indices, group),
-                comm.all_gather_dense(wire, group), g_scales, rows)
+                comm.all_gather_dense(wire, group), g_scales,
+                rows)
 
     def _finish_gather(self, stage: BucketStage, inflight: Tuple,
                        out: List[Any], inv_scale: Optional[float],
@@ -478,7 +512,8 @@ class ExchangePlan:
         spec = self.leaf_specs[stage.bucket_id]
         codec = self.config.codec_obj
         dtype = comm.torch_dtype(spec.dtype)
-        g_idx, g_wire, g_scales, rows = inflight
+        g_idx, g_wire, g_scales = (comm.wait(x) for x in inflight[:3])
+        rows = inflight[3]
         if g_scales is None:
             g_vals = codec.decode(g_wire, None, dtype)
         else:
@@ -497,8 +532,9 @@ class ExchangePlan:
     def launch_stage(self, stage: BucketStage, leaves: List[Any],
                      group: comm.Group, bstate: Any = ()
                      ) -> Tuple[Tuple, Any]:
-        """Pack + issue one stage's collective(s); returns ``(inflight,
-        new bucket state)``."""
+        """Pack + issue one stage's collective(s), asynchronously;
+        returns ``(inflight, new bucket state)``: the payload
+        ``finish_stage`` waits for and consumes."""
         if stage.kind == "dense":
             return self._launch_dense(stage, leaves, group, bstate)
         return self._launch_gather(stage, leaves, group), bstate
@@ -520,6 +556,60 @@ class ExchangePlan:
                              f"!= planned {self.treedef}")
         return leaves
 
+    def backward_block_stages(self, hooked_blocks=None
+                              ) -> Tuple[Dict[str, Tuple[int, ...]],
+                                         Tuple[int, ...]]:
+        """Split the schedule for wait-free (in-backward) launch: returns
+        ``(block -> stage indices, tail stage indices)``.  A stage is
+        hookable when it is dense and every leaf it consumes lives in one
+        top-level block (guaranteed by the block-aligned bucketing of
+        ``overlap="backward"``) that is in ``hooked_blocks`` (``None`` =
+        every labelled block).  Gather stages and stages of unhooked
+        blocks form the tail, run after autograd returns.  Indices stay
+        in schedule order, so they index ``ExchangeState.bucket_states``
+        directly."""
+        hooked: Dict[str, List[int]] = {}
+        tail: List[int] = []
+        for k, st in enumerate(self.schedule.stages):
+            blocks = ({self.leaf_blocks[i] for i in st.leaf_ids}
+                      if self.leaf_blocks else {""})
+            b = blocks.pop() if len(blocks) == 1 else None
+            if (st.kind == "dense" and b
+                    and (hooked_blocks is None or b in hooked_blocks)):
+                hooked.setdefault(b, []).append(k)
+            else:
+                tail.append(k)
+        return ({k: tuple(v) for k, v in hooked.items()}, tuple(tail))
+
+    def _accumulate_stage(self, stage: BucketStage, raw: List[Any],
+                         acc: List[Any]) -> None:
+        """Fold this stage's leaves to their classified representation
+        (the per-stage part of the paper's step 1)."""
+        for i in stage.leaf_ids:
+            acc[i] = _accumulate_leaf(raw[i], self.leaf_specs[i],
+                                      self.config)
+
+    def _exchange_setup(self, grads, group: comm.Group, average: bool,
+                        state):
+        state = self._check_state(state, grads)
+        raw = self._flatten_checked(grads)
+        p = comm.axis_size(group)
+        inv_scale = (1.0 / p) if average and group is not None else None
+        return state, raw, p, inv_scale
+
+    def execute(self, grads, group: comm.Group, average: bool = True,
+                state: Optional[ExchangeState] = None
+                ) -> Tuple[Any, ExchangeState]:
+        """Accumulate, exchange, densify, honouring ``config.overlap``:
+        any overlap mode takes ``execute_scheduled``, none
+        ``execute_fused``.  Both run the same per-stage ops, so their
+        results are bitwise equal."""
+        if self.config.overlap:
+            return self.execute_scheduled(grads, group, average=average,
+                                          state=state)
+        return self.execute_fused(grads, group, average=average,
+                                  state=state)
+
     def execute_fused(self, grads, group: comm.Group,
                       average: bool = True,
                       state: Optional[ExchangeState] = None
@@ -530,20 +620,40 @@ class ExchangePlan:
         runs).  Returns ``(tree, new ExchangeState)``; ``state`` may be
         left out for a stateless codec.  Error-feedback residuals are
         updated in place."""
-        state = self._check_state(state, grads)
-        raw = self._flatten_checked(grads)
-        p = comm.axis_size(group)
-        inv_scale = (1.0 / p) if average and group is not None else None
+        state, raw, p, inv_scale = self._exchange_setup(grads, group,
+                                                        average, state)
         acc: List[Any] = [None] * self.n_leaves
         out: List[Any] = [None] * self.n_leaves
         new_states: List[Any] = []
         for stage, bstate in zip(self.schedule.stages, state.bucket_states):
-            for i in stage.leaf_ids:
-                acc[i] = _accumulate_leaf(raw[i], self.leaf_specs[i],
-                                          self.config)
+            self._accumulate_stage(stage, raw, acc)
             inflight, bstate = self.launch_stage(stage, acc, group, bstate)
             new_states.append(bstate)
             self.finish_stage(stage, inflight, out, inv_scale, p)
+        return tree_unflatten(self.treedef, out), ExchangeState(new_states)
+
+    def execute_scheduled(self, grads, group: comm.Group,
+                          average: bool = True,
+                          state: Optional[ExchangeState] = None
+                          ) -> Tuple[Any, ExchangeState]:
+        """Overlap path: stages launch in schedule (reverse-layer) order,
+        each stage's accumulate and pack running while the earlier
+        stages' collectives are in flight; the unpacks run once every
+        collective has been issued.  Same arguments and result as
+        ``execute_fused``."""
+        state, raw, p, inv_scale = self._exchange_setup(grads, group,
+                                                        average, state)
+        acc: List[Any] = [None] * self.n_leaves
+        inflight: List[Tuple] = []
+        new_states: List[Any] = []
+        for stage, bstate in zip(self.schedule.stages, state.bucket_states):
+            self._accumulate_stage(stage, raw, acc)
+            fl, bstate = self.launch_stage(stage, acc, group, bstate)
+            inflight.append(fl)
+            new_states.append(bstate)
+        out: List[Any] = [None] * self.n_leaves
+        for stage, fl in zip(self.schedule.stages, inflight):
+            self.finish_stage(stage, fl, out, inv_scale, p)
         return tree_unflatten(self.treedef, out), ExchangeState(new_states)
 
 
@@ -592,8 +702,12 @@ def _contrib_specs(leaves) -> Tuple[Tuple[LeafSpec, ...], ...]:
 
 
 def _build_plan(treedef, contrib_specs: Tuple[Tuple[LeafSpec, ...], ...],
-                config: ExchangeConfig) -> ExchangePlan:
+                config: ExchangeConfig,
+                leaf_blocks: Optional[Tuple[str, ...]] = None
+                ) -> ExchangePlan:
     leaf_specs = tuple(classify(c, config) for c in contrib_specs)
+    if leaf_blocks is None:
+        leaf_blocks = ("",) * len(leaf_specs)
     dense_ids = tuple(i for i, s in enumerate(leaf_specs)
                       if isinstance(s, DenseSpec))
     gather_ids = tuple(i for i, s in enumerate(leaf_specs)
@@ -602,18 +716,21 @@ def _build_plan(treedef, contrib_specs: Tuple[Tuple[LeafSpec, ...], ...],
     # bucket dense leaves with the fusion planner, one group per codec
     # wire dtype, so packed buffers never promote and byte accounting is
     # exact; thresholds are in wire bytes (an int8 wire packs four times
-    # the f32 elements per bucket)
+    # the f32 elements per bucket).  Under overlap="backward" the groups
+    # are also split by top-level block: a bucket that crossed blocks
+    # could not launch until both blocks' gradients were emitted
     codec = config.codec_obj
-    groups: Dict[str, List[int]] = {}
+    groups: Dict[Tuple[str, str], List[int]] = {}
     for i in dense_ids:
-        groups.setdefault(codec.wire_dtype(leaf_specs[i].dtype),
+        block = leaf_blocks[i] if config.overlap_backward else ""
+        groups.setdefault((block, codec.wire_dtype(leaf_specs[i].dtype)),
                           []).append(i)
     threshold = (config.fusion_threshold
                  if config.fusion_threshold is not None else 0)
     dense_ids = tuple(i for ids in groups.values() for i in ids)
     buckets = []
     base = 0
-    for dt, ids in groups.items():
+    for (_, dt), ids in groups.items():
         structs = [torch.empty(leaf_specs[i].shape, device="meta",
                                dtype=comm.torch_dtype(dt)) for i in ids]
         fplan = fusion.plan_fusion(structs, threshold_bytes=threshold)
@@ -625,18 +742,31 @@ def _build_plan(treedef, contrib_specs: Tuple[Tuple[LeafSpec, ...], ...],
                 n_elems=sum(s.size for s in slots), wire_dtype=dt))
         base += len(ids)
 
-    stages = [BucketStage(kind="dense", bucket_id=bi,
-                          leaf_ids=tuple(dense_ids[s.leaf_idx]
-                                         for s in b.slots))
-              for bi, b in enumerate(buckets)]
-    stages += [BucketStage(kind="gather", bucket_id=gi, leaf_ids=(gi,))
-               for gi in gather_ids]
+    stages = []
+    for bi, b in enumerate(buckets):
+        ids = tuple(dense_ids[s.leaf_idx] for s in b.slots)
+        stages.append(BucketStage(kind="dense", bucket_id=bi, leaf_ids=ids,
+                                  trigger=leaf_blocks[min(ids)]))
+    stages += [BucketStage(kind="gather", bucket_id=gi, leaf_ids=(gi,),
+                           trigger=leaf_blocks[gi]) for gi in gather_ids]
     stages.sort(key=lambda s: -s.ready_key)
     return ExchangePlan(treedef=treedef, contrib_specs=contrib_specs,
                         leaf_specs=leaf_specs, dense_leaf_ids=dense_ids,
                         dense_buckets=tuple(buckets),
                         gather_leaf_ids=gather_ids, config=config,
-                        schedule=BucketSchedule(stages=tuple(stages)))
+                        schedule=BucketSchedule(stages=tuple(stages)),
+                        leaf_blocks=tuple(leaf_blocks))
+
+
+def leaf_block_labels(grads) -> Tuple[str, ...]:
+    """Top-level block label of every leaf, in flatten order
+    (contribution lists are single leaves): the partition wait-free
+    backprop snaps its buckets to.  A tree that is a single leaf has the
+    label ``""``."""
+    if not isinstance(grads, dict):
+        return ("",) * len(tree_flatten(grads)[0])
+    return tuple(str(key) for key in sorted(grads)
+                 for _ in tree_flatten(grads[key])[0])
 
 
 def compile_plan(grads, config: ExchangeConfig) -> ExchangePlan:
@@ -648,7 +778,8 @@ def compile_plan(grads, config: ExchangeConfig) -> ExchangePlan:
     key = (treedef, contrib_specs, config)
     plan = _PLAN_CACHE.get(key)
     if plan is None:
-        plan = _build_plan(treedef, contrib_specs, config)
+        plan = _build_plan(treedef, contrib_specs, config,
+                           leaf_blocks=leaf_block_labels(grads))
         if len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:       # FIFO bound
             _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
         _PLAN_CACHE[key] = plan

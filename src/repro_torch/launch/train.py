@@ -13,7 +13,9 @@ Strategy flags map 1:1 to the paper:
 
 The gradient wire is ``--codec {identity,bf16,f16,int8}``;
 ``--error-feedback`` makes it ``<codec>+ef`` (a per-bucket f32 residual
-threaded from step to step).  The densify and quantize kernels are always
+threaded from step to step).  ``--overlap staged`` launches every
+bucket's collective before any unpacks; ``--overlap backward`` launches
+each block's buckets from inside the backward pass (wait-free backprop).  The densify and quantize kernels are always
 on the exchange path (``ExchangeConfig(use_kernel=True)``).  Runs on the
 card unless ``--device cpu`` is given.
 
@@ -64,6 +66,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "per-bucket f32 residual of the wire's "
                          "quantisation error and fold it into the next "
                          "step's encode")
+    ap.add_argument("--overlap", nargs="?", const="staged", default=None,
+                    choices=["staged", "backward"],
+                    help="comm/compute overlap mode. 'staged' (also the "
+                         "bare flag): launch the bucket collectives in "
+                         "reverse-layer order, interleaved with the "
+                         "remaining accumulation, before any bucket "
+                         "unpacks. 'backward': wait-free backprop, "
+                         "buckets block-aligned and each block's "
+                         "collectives launched from inside the backward "
+                         "pass")
     ap.add_argument("--batch-per-worker", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=50)
@@ -122,7 +134,7 @@ def build_optimizer(args, cfg, group) -> DistributedOptimizer:
         algorithm=args.algorithm,
         fusion_threshold=args.fusion_threshold,
         codec=args.codec, error_feedback=args.error_feedback,
-        use_kernel=True)
+        overlap=args.overlap or False, use_kernel=True)
     return DistributedOptimizer(base, exchange=exchange, group=group)
 
 

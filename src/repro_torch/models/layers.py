@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -251,3 +252,44 @@ def tied_logits(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Projection through the shared embedding: the DENSE cotangent
     contribution to the tied weight."""
     return h @ table.t()
+
+
+# ---------------------------------------------------------------------------
+# Wait-free backprop: per-block gradient hook
+# ---------------------------------------------------------------------------
+
+class _BlockHook(torch.autograd.Function):
+    """Identity over a block's leaves whose backward hands the leaves'
+    gradients to ``bwd_fn`` and hands nothing on to the leaves.
+    Autograd runs a node once every output's gradient has arrived, so
+    ``bwd_fn`` sees the whole block at once."""
+
+    @staticmethod
+    def forward(ctx, bwd_fn, treedef, *leaves):
+        ctx.bwd_fn, ctx.treedef = bwd_fn, treedef
+        return leaves
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.bwd_fn(tree_unflatten(ctx.treedef, list(grads)))
+        return (None, None) + (None,) * len(grads)
+
+
+def backward_hook(bwd_fn):
+    """Identity boundary on a parameter block whose backward runs
+    ``bwd_fn(g_block)`` on the block's gradient tree (zeros for an unused
+    leaf) the moment autograd has all of it (the reference's
+    ``custom_vjp`` hook, ``repro.models.layers``): the wait-free exchange
+    launches the block's bucket collectives there, while earlier layers
+    are still differentiating.  Nothing flows on to the block's leaves,
+    so ``torch.autograd.grad`` returns ``None`` for them; what the hook
+    computes (and any state it updates) it keeps in its closure, where
+    JAX threads it out as a cotangent.  The returned ``hook(block) ->
+    block`` is an exact identity in forward, so every gradient is
+    bitwise the unhooked model's."""
+    def hook(block):
+        leaves, treedef = tree_flatten(block)
+        return tree_unflatten(treedef, list(
+            _BlockHook.apply(bwd_fn, treedef, *leaves)))
+
+    return hook

@@ -142,6 +142,17 @@ class Model:
                 cfg.n_layers, lambda: _init_block(gen, cfg, host), device)
         return params
 
+    def grad_blocks(self, params: Params) -> Tuple[str, ...]:
+        """Top-level parameter blocks in backward-emission order: the hook
+        boundaries of the wait-free exchange
+        (``ExchangeConfig(overlap="backward")``).  A stacked layer tree
+        (``layers``, ``mamba``) gets its gradient in one piece once the
+        last layer's backward is done, so the top-level groups are the
+        finest emission events; flattening is key-sorted and backward
+        emits leaves in reverse flatten order, so the partition is the
+        sorted keys, reversed (as ``repro.models.model.Model``)."""
+        return tuple(sorted(params.keys(), reverse=True))
+
     def head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tied_embeddings:
             return L.tied_logits(params["embedding"], h)

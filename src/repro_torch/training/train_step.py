@@ -1,5 +1,13 @@
 """Train step factory: loss -> contributions -> exchange -> update
-(``repro.training.train_step.make_train_step``, fused-exchange branch)."""
+(``repro.training.train_step.make_train_step``).
+
+The exchange is split out of the optimizer update, so the step follows
+``ExchangeConfig.overlap``: fused (each bucket finishes before the next
+launches), ``"staged"`` (every bucket's collective launches before any
+unpacks) or ``"backward"`` (wait-free: each block's buckets launch from
+inside the backward pass).  ``metrics["exchange_stages"]`` reports how
+many stages the schedule ran.
+"""
 from __future__ import annotations
 
 from typing import Callable
@@ -8,7 +16,8 @@ import torch
 
 from repro_torch.core.dist_opt import DistributedOptimizer
 from repro_torch.optim.base import apply_updates
-from repro_torch.training.gradients import grad_contributions
+from repro_torch.training.gradients import (grad_contributions,
+                                            wait_free_grad_exchange)
 
 
 def make_train_step(model, opt: DistributedOptimizer,
@@ -16,19 +25,27 @@ def make_train_step(model, opt: DistributedOptimizer,
                     **loss_kw) -> Callable:
     """Returns ``step(params, opt_state, ex_state, batch) -> (params,
     opt_state, ex_state, metrics)``: gradient contributions, the planned
-    exchange (every bucket accumulated, reduced and unpacked in schedule
-    order, the codec's ``ExchangeState`` threaded through), then the
+    exchange (the codec's ``ExchangeState`` threaded through), then the
     optimizer update on the exchanged dense tree."""
+    cfg = opt.exchange_config
+    wait_free = cfg.overlap_backward
+    do_exchange = opt.exchange_scheduled if cfg.overlap else opt.exchange
 
     def step(params, opt_state, ex_state, batch):
-        grads, loss, metrics = grad_contributions(
-            model, params, batch, sparse_embedding=sparse_embedding,
-            **loss_kw)
-        dense, ex_state = opt.exchange(grads, state=ex_state)
-        n_stages = opt.plan(grads).schedule.n_stages
-        metrics = dict(metrics, loss=loss,
-                       exchange_stages=torch.tensor(n_stages,
-                                                    dtype=torch.int32))
+        if wait_free:
+            dense, ex_state, loss, metrics = wait_free_grad_exchange(
+                model, opt, params, batch, state=ex_state,
+                sparse_embedding=sparse_embedding, **loss_kw)
+            metrics = dict(metrics, loss=loss)
+        else:
+            grads, loss, metrics = grad_contributions(
+                model, params, batch, sparse_embedding=sparse_embedding,
+                **loss_kw)
+            dense, ex_state = do_exchange(grads, state=ex_state)
+            n_stages = opt.plan(grads).schedule.n_stages
+            metrics = dict(metrics, loss=loss,
+                           exchange_stages=torch.tensor(n_stages,
+                                                        dtype=torch.int32))
         updates, opt_state = opt.base.update(dense, opt_state, params)
         return apply_updates(params, updates), opt_state, ex_state, metrics
 

@@ -1,5 +1,9 @@
 """Trainer: the end-to-end loop (data -> step -> metrics), the
-``repro.training.trainer`` loop without checkpoints or a recorder."""
+``repro.training.trainer`` loop without checkpoints or a recorder.
+
+A step whose metrics carry ``overflow`` (a loss-scaled step that skipped
+its update) is counted; the flags stay on the device until a log line
+reads them, so the loop adds no per-step wait."""
 from __future__ import annotations
 
 import dataclasses
@@ -46,6 +50,8 @@ class Trainer:
         cfg = self.config
         history: List[Dict[str, float]] = []
         tokens_seen = 0
+        overflow_pending: List[torch.Tensor] = []
+        overflow_skipped = 0
         t0 = time.perf_counter()
         window_t0, window_steps = t0, 0
         window_data_ms = 0.0
@@ -55,6 +61,8 @@ class Trainer:
             window_data_ms += (time.perf_counter() - t_fetch) * 1e3
             params, opt_state, exchange_state, metrics = self.step_fn(
                 params, opt_state, exchange_state, batch)
+            if "overflow" in metrics:
+                overflow_pending.append(metrics["overflow"])
             tokens_seen += batch["tokens"].numel() * self.world
             window_steps += 1
             if (step + 1) % cfg.log_every == 0 or step == cfg.total_steps - 1:
@@ -62,18 +70,25 @@ class Trainer:
                 # time below covers the steps' device work
                 m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
                 now = time.perf_counter()
+                if overflow_pending:
+                    overflow_skipped += int(sum(
+                        int(o) for o in overflow_pending))
+                    overflow_pending.clear()
                 m.update(step=step + 1, tokens=tokens_seen,
                          tok_per_s=tokens_seen / max(now - t0, 1e-9),
                          step_ms=(now - window_t0) * 1e3
                          / max(window_steps, 1),
-                         data_ms=window_data_ms / max(window_steps, 1))
+                         data_ms=window_data_ms / max(window_steps, 1),
+                         overflow_skipped=overflow_skipped)
                 window_t0, window_steps = now, 0
                 window_data_ms = 0.0
                 history.append(m)
+                skipped = (f" overflow_skipped={overflow_skipped}"
+                           if overflow_skipped else "")
                 log(f"step {step+1}: loss={m.get('loss', float('nan')):.4f} "
                     f"ce={m.get('ce', float('nan')):.4f} "
                     f"tok/s={m['tok_per_s']:.0f} "
                     f"step_ms={m['step_ms']:.1f} "
-                    f"data_ms={m['data_ms']:.2f}")
+                    f"data_ms={m['data_ms']:.2f}{skipped}")
         return {"params": params, "opt_state": opt_state,
                 "exchange_state": exchange_state, "history": history}

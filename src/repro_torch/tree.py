@@ -17,30 +17,34 @@ LEAF = "*"
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """Leaves in key-sorted order, and a hashable structure (the treedef)."""
     leaves: List[Any] = []
-
-    def rec(node):
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return (keys, tuple(rec(node[k]) for k in keys))
-        leaves.append(node)
-        return LEAF
-
-    return leaves, rec(tree)
+    return leaves, _flatten(tree, leaves)
 
 
 def tree_unflatten(treedef, leaves) -> Any:
     it = iter(leaves)
-
-    def rec(d):
-        if d == LEAF:
-            return next(it)
-        keys, children = d
-        return {k: rec(c) for k, c in zip(keys, children)}
-
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out
+
+
+# Module-level recursions: a nested function that calls itself is a
+# reference cycle, which would keep every leaf it saw alive until
+# Python's cyclic collector ran (gigabytes of gradients on the card).
+
+def _flatten(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return (keys, tuple(_flatten(node[k], leaves) for k in keys))
+    leaves.append(node)
+    return LEAF
+
+
+def _unflatten(d, it):
+    if d == LEAF:
+        return next(it)
+    keys, children = d
+    return {k: _unflatten(c, it) for k, c in zip(keys, children)}
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:
