@@ -95,6 +95,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
                step (state bitwise, residuals rolled back and halved with
                the scale) and ``growth_interval=2`` must double the scale
                and every residual exactly;
+     backends — the collective backends at a world of 1 over NCCL: the
+               fp8 codecs' encode against the reference's bytes (an edge
+               table held to jnp on the CPU, and ``fp8_reference``, a
+               plain numpy rounding, on 2.5M random values in f32 and
+               bf16, e4m3fn past 464 and e5m2 past 61440, ±inf, NaN
+               compared as NaN); the launcher, 2 steps each:
+               ``--backend ringsim`` (dense_reduce and sparse_gather),
+               ``--reduce-scatter`` (identity and bf16) and
+               ``--wire-dtype bf16`` bitwise against their flat runs
+               (parameters and Adam state; the ring issues no collective
+               at P = 1), ``--codec f8e4m3`` (its first exchange bitwise
+               the fp8 cast of the identity exchange); the comm layer's
+               calls against ``plan.hlo_collectives``; the hierarchical
+               per-hop int8 path with ``group=(WORLD, WORLD)``: the
+               first int8+ef exchange's residuals bitwise the flat
+               one's and its gradients within one requantize round trip,
+               3 ``make_train_step`` steps of int8+ef and 1 of int8 with
+               the launches counted from the plan (per dense stage hop
+               0's encode, the stateless requantize, two decode-sums);
+               the requantize (stateless encode of an f32 decode-sum of
+               two workers' q) bitwise against ``quantize_plain`` at
+               every stage size, timed with the L2 flushed beside its
+               5 B an element bound;
   6. prefill — full-width transformer-big's prefill step on one
                32768-token sequence with 256 encoder states:
                ``forward(attn_impl="kernel")`` and ``head`` on the last
@@ -127,6 +150,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                losses must agree; the reduced transformer-big takes one
                loss-scaled step of 4 microbatches with
                ``overlap="backward"`` on each device, losses within 1e-5;
+               ``small_backends``: 2 steps card vs CPU with
+               ``--backend ringsim``, ``--reduce-scatter`` and the
+               hierarchical int8+ef path (``group=(WORLD, WORLD)``);
                then its prefill step and 4 translate steps on the card (the
                kernel's f32 path) and the CPU, logits within 3e-5; the
                reduced zamba2 the same (forward, 4-token prefix, 4 decode
@@ -1330,6 +1356,521 @@ def overflow_and_growth(run, wire, ov, good, tag) -> None:
                       "growth_residuals": "held x 2, bitwise"}))
 
 
+# ---------------------------------------------------------------------------
+# backends: flat / hierarchical / ring simulation, reduce-scatter, fp8 wires
+# ---------------------------------------------------------------------------
+
+#: the launcher runs of the backends phase, 2 steps each: (tag, grad
+#: accumulation, flags, the tag of the run it must equal bitwise)
+BACKEND_RUNS = (
+    ("flat", "dense_reduce", [], None),
+    ("ringsim", "dense_reduce", ["--backend", "ringsim"], "flat"),
+    ("reduce_scatter", "dense_reduce", ["--reduce-scatter"], "flat"),
+    ("flat/sparse_gather", "sparse_gather", [], None),
+    ("ringsim/sparse_gather", "sparse_gather", ["--backend", "ringsim"],
+     "flat/sparse_gather"),
+    ("flat/bf16", "dense_reduce", ["--codec", "bf16"], None),
+    ("reduce_scatter/bf16", "dense_reduce",
+     ["--reduce-scatter", "--codec", "bf16"], "flat/bf16"),
+    ("wire_dtype/bf16", "dense_reduce", ["--wire-dtype", "bf16"],
+     "flat/bf16"),
+    ("flat/f8e4m3", "dense_reduce", ["--codec", "f8e4m3"], None),
+)
+
+#: float8 bytes of ``jnp.asarray(x, float32).astype(...)`` (e4m3fn, e5m2),
+#: as the reference gives them on the CPU (tests/test_torch_backend.py
+#: holds this table to jnp); NaN entries are compared as NaN
+FP8_REFERENCE_BYTES = {
+    0.0: (0x00, 0x00), 1.0: (0x38, 0x3C), -1.0: (0xB8, 0xBC),
+    447.0: (0x7E, 0x5F), 448.0: (0x7E, 0x5F), 449.0: (0x7E, 0x5F),
+    463.9: (0x7E, 0x5F), 464.0: (0x7E, 0x5F), 464.01: (0x7F, 0x5F),
+    465.0: (0x7F, 0x5F), 480.0: (0x7F, 0x60), 500.0: (0x7F, 0x60),
+    1e6: (0x7F, 0x7C), -464.0: (0xFE, 0xDF), -465.0: (0xFF, 0xDF),
+    -1e6: (0xFF, 0xFC), math.inf: (0x7F, 0x7C), -math.inf: (0xFF, 0xFC),
+    math.nan: (0x7F, 0x7E), 2.0 ** -9: (0x01, 0x18),
+    2.0 ** -10: (0x00, 0x14), 2.0 ** -11: (0x00, 0x10),
+    3 * 2.0 ** -11: (0x01, 0x16), 57344.0: (0x7F, 0x7B),
+    61439.0: (0x7F, 0x7B), 61440.0: (0x7F, 0x7C), 61441.0: (0x7F, 0x7C),
+    65536.0: (0x7F, 0x7C), -61440.0: (0xFF, 0xFC), 1e-8: (0x00, 0x00),
+}
+
+
+def fp8_table(name: str):
+    """Every finite non-negative value of the float8 format ``name``
+    decoded from its bits (bytes 0x00 up), and the value one step past
+    the largest (the rounding limit's other end): the plain reference the
+    card's encode is held to."""
+    import numpy as np
+    b = np.arange(128, dtype=np.int64)
+    if name == "float8_e4m3fn":
+        exp, man, bias, mbits = (b >> 3) & 0xF, b & 7, 7, 3
+        finite = b < 0x7F                      # 0x7F is NaN
+        beyond = 480.0
+    else:
+        exp, man, bias, mbits = (b >> 2) & 0x1F, b & 3, 15, 2
+        finite = b < 0x7C                      # 0x7C inf, above NaN
+        beyond = 65536.0
+    val = np.where(exp == 0, man / 2 ** mbits * 2.0 ** (1 - bias),
+                   (1 + man / 2 ** mbits) * 2.0 ** (exp - bias))
+    return val[finite], beyond
+
+
+def fp8_reference(x, name: str):
+    """Bytes of the reference's round-to-nearest-even cast of f32 ``x``
+    (numpy) to float8 ``name``, from its decoded value table: ties go to
+    the even byte, and past the largest finite value's rounding limit
+    NaN for e4m3fn and inf for e5m2 (``0x7F`` / ``0x7C``, sign kept)."""
+    import numpy as np
+    vals, beyond = fp8_table(name)
+    over_byte, nan_byte = ((0x7F, 0x7F) if name == "float8_e4m3fn"
+                           else (0x7C, 0x7E))
+    table = np.append(vals, beyond)            # the virtual next value
+    mag = np.abs(x.astype(np.float64))
+    hi = np.clip(np.searchsorted(table, mag), 1, len(table) - 1)
+    lo = hi - 1
+    dlo, dhi = mag - table[lo], table[hi] - mag
+    pick = np.where((dhi < dlo) | ((dhi == dlo) & (hi % 2 == 0)), hi, lo)
+    pick = np.where(mag >= table[-1], len(table) - 1, pick)
+    out = np.where(pick == len(table) - 1, over_byte, pick).astype(np.uint8)
+    out = np.where(np.isnan(x), nan_byte, out).astype(np.uint8)
+    return out | (np.signbit(x).astype(np.uint8) << 7)
+
+
+def fp8_same(got, want, name: str) -> bool:
+    """Bytes equal, NaN equal to any NaN (e4m3fn's NaN is 0x7F, e5m2's
+    any magnitude above inf's 0x7C, sign aside)."""
+    import numpy as np
+    nan = (lambda b: (b & 0x7F) == 0x7F) if name == "float8_e4m3fn" \
+        else (lambda b: (b & 0x7F) > 0x7C)
+    gnan, wnan = nan(got), nan(want)
+    return bool(np.array_equal(gnan, wnan)
+                and np.array_equal(got[~gnan], want[~wnan]))
+
+
+def phase_fp8_cast(comm) -> dict:
+    """The fp8 codecs' encode on the card against the reference's bytes:
+    the edge table (held to jnp on the CPU) and random values, e4m3fn
+    past 464 and e5m2 past 61440 included, against ``fp8_reference``;
+    PyTorch's own cast reported beside it."""
+    import numpy as np
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    edges = torch.tensor(list(FP8_REFERENCE_BYTES), dtype=torch.float32)
+    parts = [edges, -edges.abs()]
+    for s in (1e-5, 1e-3, 1.0, 100.0, 3e4):
+        parts.append(torch.randn(1 << 20, device=dev, generator=gen).cpu() * s)
+    u = torch.rand(1 << 20, device=dev, generator=gen).cpu()
+    parts.append((448.0 + u * (1e6 - 448.0)) * torch.where(u > 0.5, 1.0, -1.0))
+    x = torch.cat(parts)
+    out = {}
+    for k, (name, dt) in enumerate((("float8_e4m3fn", torch.float8_e4m3fn),
+                                    ("float8_e5m2", torch.float8_e5m2))):
+        for src in (torch.float32, torch.bfloat16):
+            xs = x.to(src)
+            got = comm.fp8_encode(xs.to(dev), dt).view(torch.uint8).cpu(
+                ).numpy()
+            want = fp8_reference(xs.to(torch.float32).numpy(), name)
+            if not fp8_same(got, want, name):
+                bad = np.nonzero(got != want)[0][:8]
+                fail(f"fp8 {name} from {src}: encode differs from the "
+                     f"reference at {bad.tolist()} "
+                     f"({xs[bad].tolist()}: {got[bad]} vs {want[bad]})")
+        table = np.array([v[k] for v in FP8_REFERENCE_BYTES.values()],
+                         np.uint8)
+        got = comm.fp8_encode(edges.to(dev), dt).view(torch.uint8).cpu(
+            ).numpy()
+        if not fp8_same(got, table, name):
+            fail(f"fp8 {name}: edge bytes {got.tolist()} vs the "
+                 f"reference's {table.tolist()}")
+        plain = edges.to(dev).to(dt).view(torch.uint8).cpu().numpy()
+        out[name] = {"elements": int(x.numel()) * 2,
+                     "bitwise_nan_as_nan": True,
+                     "torch_cast_equals_reference": fp8_same(plain, table,
+                                                             name),
+                     "torch_cast_of_1e6": int(plain[list(
+                         FP8_REFERENCE_BYTES).index(1e6)])}
+    print(json.dumps({"phase": "backends_fp8_cast", **out}))
+    return out
+
+
+def phase_backends(train, D, Q, comm) -> dict:
+    """The collective backends on full-width transformer-big, world of 1
+    over NCCL: the launcher's ring-simulation, reduce-scatter, fp8 and
+    ``--wire-dtype`` runs (2 steps each) held bitwise against their flat
+    counterparts, the fp8 step's exchange against the reference's cast of
+    the identity exchange, the hierarchical per-hop int8 path through
+    ``DistributedOptimizer`` and ``make_train_step``, the requantize at
+    every stage size, and the fp8 cast."""
+    quiet = lambda s: None
+    launches = {"densify": 0, "quantize": 0, "quantize_ef": 0,
+                "decode_sum": 0}
+    fp8 = phase_fp8_cast(comm)
+    states, steps = {}, 2
+    for tag, accum, flags, same_as in BACKEND_RUNS:
+        argv = FULL_WIDTH + ["--grad-accum", accum, "--steps", str(steps)] \
+            + flags
+        plan = exchange_plan(train, argv)
+        torch.cuda.synchronize()
+        Q.reset_launches()
+        D.densify_kernel.launches = 0
+        comm.reset_calls()
+        result = train.run(argv, log=quiet)
+        torch.cuda.synchronize()
+        calls = comm.calls()
+        issued = sum(v for k, v in calls.items()
+                     if k != "two_level_all_reduce")
+        got = {"densify": D.densify_kernel.launches,
+               "quantize": Q.quantize_kernel.launches}
+        losses = [h["loss"] for h in result["history"]]
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            fail(f"backends {tag}: losses {losses}")
+        if got != {"densify": steps, "quantize": 0}:
+            fail(f"backends {tag}: launches {got}")
+        if issued != steps * plan.hlo_collectives(1):
+            fail(f"backends {tag}: {calls} collective calls, the plan "
+                 f"says {plan.hlo_collectives(1)} a step")
+        if plan.config.backend == "ringsim" and issued:
+            fail(f"backends {tag}: the ring issued {calls} at P = 1")
+        launches["densify"] += got["densify"]
+        state = train_state(result["params"], result["opt_state"],
+                            result["exchange_state"])
+        line = {"phase": "backends_launcher", "run": tag,
+                "backend": plan.config.backend, "codec": plan.config.codec,
+                "collective": plan.config.dense_collective,
+                "grad_accum": accum, "losses": losses, "calls": calls,
+                "plan_calls_per_step": plan.hlo_collectives(1),
+                "wire_bytes": {p: plan.wire_bytes(p) for p in (4, 8)}}
+        if same_as is not None:
+            bad = differing(state, states[same_as][0])
+            if bad or losses != states[same_as][1]:
+                fail(f"backends {tag}: differs from {same_as} bitwise in "
+                     f"tensors {bad[:10]} (losses {losses} vs "
+                     f"{states[same_as][1]})")
+            line["bitwise_vs"] = same_as
+        else:
+            states[tag] = (state, losses)
+        print(json.dumps(line))
+        del result, state
+    del states
+    torch.cuda.empty_cache()
+    fp8["exchange"] = backends_fp8_exchange(train, comm)
+    hier = backends_hierarchical(train, D, Q, comm)
+    for k in launches:
+        launches[k] += hier["launches"][k]
+    requant = phase_requantize(Q, train)
+    return {"launches": launches, "hierarchical": hier,
+            "requantize": requant, "fp8": fp8}
+
+
+def _world_of_one(train):
+    """A world of 1 over NCCL (the launcher's), and whether this call
+    started it."""
+    return train.init_distributed(train.resolve_device("cuda"))[2]
+
+
+def backends_fp8_exchange(train, comm) -> dict:
+    """The first step's exchanged gradients of the fp8 wire equal the
+    reference's fp8 cast (``comm.fp8_encode``, held to the reference's
+    bytes by ``phase_fp8_cast``) of the identity exchange's, leaf by
+    leaf, bitwise."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.training.gradients import grad_contributions
+    from repro_torch.tree import tree_flatten
+    created = _world_of_one(train)
+    try:
+        cfg = get_config("transformer-big")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda")
+        batch = {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(
+            cfg, 8, 256, seed=0).batch_at(0).items()}
+        g = grad_contributions(model, params, batch,
+                               sparse_embedding=True)[0]
+        outs = {}
+        for codec in ("identity", "f8e4m3"):
+            opt = train.build_optimizer(train.parse_args(
+                FULL_WIDTH + ["--codec", codec]), cfg, dist.group.WORLD)
+            outs[codec] = tree_flatten(opt.exchange(g)[0])[0]
+        n = 0
+        for a, b in zip(outs["identity"], outs["f8e4m3"]):
+            want = comm.fp8_encode(a, torch.float8_e4m3fn).to(a.dtype)
+            if not same_bits(b, want):
+                fail(f"backends fp8: a leaf of {tuple(a.shape)} differs "
+                     f"from the fp8 cast of the identity exchange")
+            n += a.numel()
+        nan = sum(int(torch.isnan(b).sum()) for b in outs["f8e4m3"])
+        line = {"phase": "backends_fp8_exchange", "elements": n,
+                "bitwise_vs_fp8_cast_of_identity": True, "nan": nan}
+        print(json.dumps(line))
+        return line
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def backends_hierarchical(train, D, Q, comm) -> dict:
+    """The hierarchical per-hop int8 path on the card: ``group=(WORLD,
+    WORLD)`` (two levels of size 1; the launcher refuses an odd world, as
+    the reference does).  The first exchange's residuals bitwise those of
+    the flat int8+ef exchange (hop 0 is the same fused encode) and its
+    gradients within one requantize round trip of the flat ones; then 3
+    ``make_train_step`` steps with int8+ef and 1 with int8, launches
+    counted against the plan: per dense stage hop 0's encode (fused under
+    +ef), the stateless requantize encode, two decode-sums, and
+    ``plan.hlo_collectives((1, 1))`` collectives."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import DistributedOptimizer, ExchangeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, noam_schedule
+    from repro_torch.training import make_train_step
+    from repro_torch.training.gradients import grad_contributions
+    from repro_torch.tree import tree_flatten
+    created = _world_of_one(train)
+    launches = {"densify": 0, "quantize": 0, "quantize_ef": 0,
+                "decode_sum": 0}
+    out = {}
+    try:
+        world = dist.group.WORLD
+        cfg = get_config("transformer-big")
+        model = build_model(cfg)
+        pipe = make_pipeline(cfg, 8, 256, seed=0)
+
+        def batch_at(k):
+            return {k2: torch.from_numpy(v).cuda()
+                    for k2, v in pipe.batch_at(k).items()}
+
+        def opt_for(backend, codec):
+            return DistributedOptimizer(
+                adamw(noam_schedule(cfg.d_model, warmup_steps=400)),
+                exchange=ExchangeConfig(sparse_as_dense=True, codec=codec,
+                                        backend=backend, use_kernel=True),
+                group=(world, world) if backend == "hierarchical"
+                else world)
+
+        def counts():
+            torch.cuda.synchronize()
+            c = comm.calls()
+            return {"densify": D.densify_kernel.launches,
+                    "quantize": Q.quantize_kernel.launches,
+                    "quantize_ef": Q.quantize_ef_kernel.launches,
+                    "decode_sum": Q.decode_sum_kernel.launches,
+                    "collectives": sum(v for k, v in c.items()
+                                       if k != "two_level_all_reduce"),
+                    "two_level_all_reduce": c["two_level_all_reduce"]}
+
+        def reset():
+            torch.cuda.synchronize()
+            Q.reset_launches()
+            D.densify_kernel.launches = 0
+            comm.reset_calls()
+
+        def want(plan, steps, ef):
+            n_dense = sum(s.kind == "dense" for s in plan.schedule.stages)
+            return {"densify": steps, "quantize": 2 * steps * n_dense,
+                    "quantize_ef": steps * n_dense if ef else 0,
+                    "decode_sum": 2 * steps * n_dense,
+                    "collectives": steps * plan.hlo_collectives((1, 1)),
+                    "two_level_all_reduce": 0}
+
+        # -- the first exchange against the flat one ------------------------
+        params = model.init(seed=0, device="cuda")
+        g = grad_contributions(model, params, batch_at(0),
+                               sparse_embedding=True)[0]
+        flat, hier = opt_for("flat", "int8+ef"), opt_for("hierarchical",
+                                                         "int8+ef")
+        fs = flat.init_exchange_state(g)
+        hs = hier.init_exchange_state(g)
+        f_out, fs = flat.exchange(g, fs)
+        reset()
+        h_out, hs = hier.exchange(g, hs)
+        got = counts()
+        plan = hier.plan(g)
+        exp = {k: v for k, v in want(plan, 1, True).items()
+               if k != "densify"}
+        exp["densify"] = 1
+        if got != exp:
+            fail(f"backends hierarchical exchange: launches {got}, want "
+                 f"{exp}")
+        for k in launches:
+            launches[k] += got[k]
+        rf = [r for r in fs.bucket_states if isinstance(r, torch.Tensor)]
+        rh = [r for r in hs.bucket_states if isinstance(r, torch.Tensor)]
+        bad = differing(rh, rf)
+        if bad or not rf:
+            fail(f"backends hierarchical: residuals {bad[:10]} differ from "
+                 f"the flat int8+ef exchange's")
+        worst = 0.0
+        for a, b in zip(tree_flatten(f_out)[0], tree_flatten(h_out)[0]):
+            a32, b32 = a.float(), b.float()
+            # one requantize round trip (scale / 2, scale from the
+            # partial sum's absmax) and the leaf dtype's rounding of each
+            half = a32.abs().max() / 127 / 2 * (1 + 1e-3)
+            ulp = torch.maximum(a32.abs(), b32.abs()) * (
+                2.0 ** -8 if a.dtype == torch.bfloat16 else 2.0 ** -23)
+            err = (a32 - b32).abs()
+            if bool((err > half + 2 * ulp).any()):
+                fail(f"backends hierarchical: a leaf of {tuple(a.shape)} "
+                     f"is {float(err.max())} from the flat exchange, more "
+                     f"than one requantize round trip {float(half)}")
+            worst = max(worst, float((err / half.clamp_min(1e-30)).max()))
+        out["first_exchange"] = {"residuals_bitwise_vs_flat": len(rf),
+                                 "max_err_over_half_scale": worst,
+                                 "launches": got}
+        print(json.dumps({"phase": "backends_hierarchical_exchange",
+                          **out["first_exchange"]}))
+        del g, f_out, h_out, fs, hs, flat
+        # -- make_train_step: 3 steps of int8+ef, 1 of int8 -----------------
+        for codec, n_steps in (("int8+ef", 3), ("int8", 1)):
+            opt = opt_for("hierarchical", codec)
+            step = make_train_step(model, opt, sparse_embedding=True)
+            params = model.init(seed=0, device="cuda")
+            opt_state = opt.init(params)
+            g0 = grad_contributions(model, params, batch_at(0),
+                                    sparse_embedding=True)[0]
+            ex = opt.init_exchange_state(g0)
+            plan = opt.plan(g0)
+            del g0
+            reset()
+            losses = []
+            for k in range(n_steps):
+                params, opt_state, ex, m = step(params, opt_state, ex,
+                                                batch_at(k))
+                losses.append(float(m["loss"]))
+            got = counts()
+            exp = want(plan, n_steps, codec.endswith("+ef"))
+            if got != exp:
+                fail(f"backends hierarchical {codec}: launches {got}, want "
+                     f"{exp} from the plan")
+            for k in launches:
+                launches[k] += got[k]
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in tree_flatten(params)[0])
+            if not finite:
+                fail(f"backends hierarchical {codec}: non-finite params")
+            out[codec] = {"steps": n_steps, "losses": losses,
+                          "launches": got,
+                          "plan_calls_per_step": plan.hlo_collectives((1, 1)),
+                          "hop_wire_bytes": {str(lv): plan.hop_wire_bytes(lv)
+                                             for lv in ((2, 4), (4, 16))}}
+            print(json.dumps({"phase": "backends_hierarchical_step",
+                              "codec": codec, **out[codec]}))
+            del params, opt_state, ex, step, opt
+        torch.cuda.empty_cache()
+    finally:
+        if created:
+            dist.destroy_process_group()
+    out["launches"] = launches
+    return out
+
+
+def phase_requantize(Q, train) -> dict:
+    """The hierarchical path's requantize: the stateless encode of an f32
+    partial sum (the decode-sum of two workers' real q) at every distinct
+    stage size of the int8+ef plan, bitwise against ``quantize_plain``
+    (q and scale), timed as device time with the L2 flushed, beside its
+    byte bound (4 B read and 1 B written an element); per step, the 16
+    stages' sum."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sizes = int8_ef_stage_sizes(train)
+    rows, step_ms, step_bound, n_step = [], 0.0, 0.0, 0
+    for n, count in sizes.items():
+        parts = [Q.quantize_kernel((torch.randn(n, device=dev, generator=gen)
+                                    * 1e-3).to(torch.bfloat16))
+                 for _ in range(2)]
+        partial = Q.decode_sum_kernel(torch.cat([q for q, _ in parts]),
+                                      torch.cat([s for _, s in parts]), 2)
+        q, s = Q.quantize_kernel(partial)
+        qp, sp = Q.quantize_plain(partial)
+        if not (torch.equal(q, qp) and bits_equal(s, sp)):
+            fail(f"requantize at {n}: the kernel differs from "
+                 f"quantize_plain")
+        iters = 20 if n > 1 << 20 else 50
+        ms = device_ms_cold(lambda: Q.quantize_kernel(partial), iters)
+        plain = (device_ms_cold(lambda: Q.quantize_plain(partial), 5)
+                 if n == max(sizes) else None)
+        bound = n * 5 / HBM_BYTES_PER_S * 1e3
+        rows.append({"elements": n, "stages": count, "kernel_ms": ms,
+                     "plain_ms": plain, "bound_ms": bound,
+                     "bitwise_vs_plain": True})
+        step_ms += ms * count
+        step_bound += bound * count
+        n_step += n * count
+        del parts, partial, q, s, qp, sp
+    out = {"by_size": rows, "per_step_ms": step_ms,
+           "per_step_bound_ms": step_bound, "per_step_elements": n_step,
+           "bound_by": "bytes"}
+    print(json.dumps({"phase": "backends_requantize", **out}))
+    return out
+
+
+def phase_small_backends(train) -> None:
+    """The reduced transformer-big in f32 trains 2 steps on the card and
+    on the CPU with the hierarchical backend (``group=(WORLD, WORLD)``,
+    int8+ef), the ring simulation and ``--reduce-scatter``: losses within
+    rel 1e-4 (the two devices sum in other orders)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import DistributedOptimizer, ExchangeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import make_train_step
+    from repro_torch.training.gradients import grad_contributions
+    base = ["--reduced", "--dist", "horovod", "--grad-accum",
+            "dense_reduce", "--batch-per-worker", "4", "--seq-len", "32",
+            "--steps", "2", "--log-every", "1"]
+    quiet = lambda s: None
+    for flags in (["--backend", "ringsim"], ["--reduce-scatter"]):
+        card = train.run(base + flags + ["--device", "cuda"],
+                         log=quiet)["history"]
+        cpu = train.run(base + flags + ["--device", "cpu"],
+                        log=quiet)["history"]
+        lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
+        if len(lc) != 2 or not all(math.isclose(x, y, rel_tol=1e-4)
+                                   for x, y in zip(lc, lh)):
+            fail(f"small backends {flags}: card {lc} vs cpu {lh}")
+        print(json.dumps({"phase": "small_backends", "flags": flags,
+                          "card_losses": lc, "cpu_losses": lh}))
+
+    def hierarchical(device):
+        created = train.init_distributed(train.resolve_device(device))[2]
+        try:
+            cfg = get_config("transformer-big").reduced()
+            model = build_model(cfg)
+            world = dist.group.WORLD
+            opt = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(
+                sparse_as_dense=True, codec="int8+ef",
+                backend="hierarchical", use_kernel=True),
+                group=(world, world))
+            step = make_train_step(model, opt, sparse_embedding=True)
+            pipe = make_pipeline(cfg, 4, 32, seed=0)
+            batches = [{k: torch.from_numpy(v).to(device)
+                        for k, v in pipe.batch_at(s).items()}
+                       for s in range(2)]
+            params = model.init(seed=0, device=device)
+            ex = opt.init_exchange_state(grad_contributions(
+                model, params, batches[0], sparse_embedding=True)[0])
+            opt_state, losses = opt.init(params), []
+            for b in batches:
+                params, opt_state, ex, m = step(params, opt_state, ex, b)
+                losses.append(float(m["loss"]))
+            return losses
+        finally:
+            if created:
+                dist.destroy_process_group()
+
+    lc, lh = hierarchical("cuda"), hierarchical("cpu")
+    if not all(math.isclose(x, y, rel_tol=1e-4) for x, y in zip(lc, lh)):
+        fail(f"small backends hierarchical int8+ef: card {lc} vs cpu {lh}")
+    print(json.dumps({"phase": "small_backends", "flags": [
+        "hierarchical", "int8+ef"], "card_losses": lc, "cpu_losses": lh}))
+
+
 def phase_small_reference(train) -> None:
     """The reduced configs in f32 train the same on the card (kernels)
     and on the CPU (plain versions, held against the JAX package by the
@@ -2478,6 +3019,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     overlap = clock("overlap", phase_overlap, train, D, Q, comm)
     torch.cuda.empty_cache()
+    backends = clock("backends", phase_backends, train, D, Q, comm)
+    torch.cuda.empty_cache()
     model = build_model(get_config("transformer-big"))
     params = model.init(seed=0, device="cuda")
     prefill = clock("prefill", phase_prefill, model, params, FA)
@@ -2495,6 +3038,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     clock("small", phase_small_reference, train)
+    clock("small_backends", phase_small_backends, train)
     clock("small_forward", phase_small_forward)
     clock("small_hybrid", phase_small_hybrid, K)
     print(json.dumps({"kernels": [{
@@ -2502,10 +3046,11 @@ def main() -> int:
         "source": "src/repro_torch/csrc/densify.cu",
         "replaces": "src/repro/kernels/densify.py:40",
         "launches": path["densify_launches"] + codec["densify_launches"]
-        + overlap["launches"]["densify"],
+        + overlap["launches"]["densify"] + backends["launches"]["densify"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
-                              "overlap": overlap["launches"]["densify"]},
+                              "overlap": overlap["launches"]["densify"],
+                              "backends": backends["launches"]["densify"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -2519,16 +3064,29 @@ def main() -> int:
         "entry_points": ["repro_quantize_int8_ef", "repro_quantize_int8",
                          "repro_int8_decode_sum"],
         "launches": codec["quantize_launches"]
-        + overlap["launches"]["quantize"],
+        + overlap["launches"]["quantize"] + backends["launches"]["quantize"],
         "launches_by_entry": {
             "repro_quantize_int8_ef": codec["quantize_ef_launches"]
-            + overlap["launches"]["quantize_ef"],
+            + overlap["launches"]["quantize_ef"]
+            + backends["launches"]["quantize_ef"],
             "repro_quantize_int8": codec["quantize_launches"]
             - codec["quantize_ef_launches"]
             + overlap["launches"]["quantize"]
-            - overlap["launches"]["quantize_ef"],
+            - overlap["launches"]["quantize_ef"]
+            + backends["launches"]["quantize"]
+            - backends["launches"]["quantize_ef"],
             "repro_int8_decode_sum": codec["decode_sum_launches"]
-            + overlap["launches"]["decode_sum"]},
+            + overlap["launches"]["decode_sum"]
+            + backends["launches"]["decode_sum"]},
+        "launches_by_phase": {"codec": codec["quantize_launches"],
+                              "overlap": overlap["launches"]["quantize"],
+                              "backends": backends["launches"]["quantize"]},
+        "requantize": {
+            "per_step_ms": backends["requantize"]["per_step_ms"],
+            "per_step_bound_ms": backends["requantize"]["per_step_bound_ms"],
+            "bound_by": "bytes",
+            # hop 1 of every dense stage: half the phase's encodes
+            "launches": backends["launches"]["quantize"] // 2},
         "max_abs_err": qkern["max_abs_err"],
         "ms": wire["kernel_ms"], "plain_ms": wire["plain_ms"],
         "unfused_ms": wire["unfused_ms"],
@@ -2538,7 +3096,8 @@ def main() -> int:
             "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "decode_sum": {"launches": codec["decode_sum_launches"]
-                       + overlap["launches"]["decode_sum"],
+                       + overlap["launches"]["decode_sum"]
+                       + backends["launches"]["decode_sum"],
                        **wire["decode_sum"][1]},
         "f32_leaf": {
             "per_step_ms": wire["per_step"]["encode_f32_ms"],

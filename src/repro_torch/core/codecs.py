@@ -1,11 +1,14 @@
 """WireCodec — pluggable gradient wire formats, with explicit state.
 
-The torch counterpart of ``repro.core.codecs`` for a flat process group,
-where each rank is its own process:
+The torch counterpart of ``repro.core.codecs``, where each rank is its
+own process:
 
     init_state(plan, device=) -> ExchangeState (one entry per stage)
     encode(buf)               -> (wire values, optional side scales)
     encode_stateful(buf, st)  -> (wire, scales, new bucket state)
+    encode_hop(buf, st, k)    -> hop-k encode (k=0 consumes the state)
+    requantize(buf)           -> stateless re-encode between mesh levels
+    reduce_hop(gathered, …)   -> decode + sum one hop's gathered payloads
     decode(wire, scale, …)    -> buf in the native dtype
     wire_bytes(n_elems)       -> exact encoded payload size
 
@@ -17,7 +20,10 @@ Codecs come in two families the exchange must distinguish:
     be summed by the collective itself (an allreduce of the bf16 buffer);
   * **non-linear** codecs (int8 + per-bucket absmax scale): workers
     quantise against their own scale, so the plan allgathers (values,
-    scales) and sums after decode (``sum_decoded``).
+    scales) and sums after decode (``sum_decoded``).  On the
+    hierarchical backend it runs one (encode -> gather -> ``reduce_hop``)
+    round per mesh level, re-encoding the partial sums with
+    ``requantize`` between levels.
 
 And in two statefulness families:
 
@@ -30,16 +36,20 @@ And in two statefulness families:
 
 ``Int8Codec`` quantises through ``repro_torch.kernels.ops.quantize_int8``
 (``quantize_int8_ef`` under error feedback, which takes the residual's
-add and subtraction in) and sums gathered payloads through
-``ops.int8_decode_sum``: the CUDA kernels for CUDA tensors, their plain
-versions for CPU tensors.  The
-fp8 cast codecs of the reference are not carried: gloo refuses
-``float8_e4m3fn`` in ``all_gather`` and ``all_reduce``.
+add and subtraction in; a requantize takes the stateless encode) and
+sums gathered payloads through ``ops.int8_decode_sum``: the CUDA kernels
+for CUDA tensors, their plain versions for CPU tensors.
+
+The fp8 cast codecs (``f8e4m3``, ``f8e5m2``) round as the reference's
+cast does, NaN past e4m3fn's range (``comm.fp8_encode``), not as
+PyTorch's saturating cast; their buffers cross the process groups as
+uint8 bit patterns (``repro_torch.core.comm``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import comm
@@ -47,6 +57,32 @@ from repro_torch.kernels import ops
 
 #: suffix marking an ErrorFeedback-wrapped codec in the registry
 EF_SUFFIX = "+ef"
+
+_DTYPE_ALIASES = {"bf16": "bfloat16", "f32": "float32", "fp32": "float32",
+                  "f16": "float16", "fp16": "float16",
+                  "f8e4m3": "float8_e4m3fn", "fp8e4m3": "float8_e4m3fn",
+                  "f8e5m2": "float8_e5m2", "fp8e5m2": "float8_e5m2"}
+
+
+def canonical_dtype(name) -> Optional[str]:
+    """Normalise a dtype spec (``"bf16"``, ``torch.bfloat16``, a numpy
+    dtype name such as ``"f4"``) to its canonical numpy name, or None."""
+    if name is None:
+        return None
+    if isinstance(name, torch.dtype):
+        return comm.dtype_name(name)
+    if isinstance(name, str) and name in _DTYPE_ALIASES:
+        name = _DTYPE_ALIASES[name]
+    if isinstance(name, str) and name in comm._DTYPES:
+        return name
+    try:
+        out = np.dtype(name).name
+    except TypeError:
+        out = None
+    if out not in comm._DTYPES:
+        raise ValueError(f"unknown wire dtype {name!r} (try 'bf16', "
+                         f"'f16', or any numpy dtype name)")
+    return out
 
 
 class ExchangeState:
@@ -138,6 +174,32 @@ class WireCodec:
         wire, scale = self.encode(buf)
         return wire, scale, state
 
+    def requantize(self, buf: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Re-encode a partially reduced buffer between mesh levels (the
+        hierarchical per-hop path).  Stateless by construction: the
+        error of hop > 0 is the same on every worker of the reduced
+        group, so it must not enter a worker's own feedback state."""
+        return self.encode(buf)
+
+    def encode_hop(self, buf: torch.Tensor, state: Any, level: int
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Any]:
+        """Hop-``level`` encode of the hierarchical reduction: level 0 is
+        the worker's own encode (consumes and updates the state), later
+        levels requantize the partial sums statelessly."""
+        if level == 0:
+            return self.encode_stateful(buf, state)
+        wire, scale = self.requantize(buf)
+        return wire, scale, state
+
+    def reduce_hop(self, gathered_wire: torch.Tensor,
+                   gathered_scales: Optional[torch.Tensor], n_chunks: int,
+                   native_dtype) -> torch.Tensor:
+        """Decode one hop's ``n_chunks`` gathered payloads and sum them
+        (the per-level reduction of the hierarchical path)."""
+        return sum_decoded(self, gathered_wire, gathered_scales, n_chunks,
+                           native_dtype)
+
     def __repr__(self):
         return f"{type(self).__name__}({self.name!r})"
 
@@ -160,19 +222,23 @@ class IdentityCodec(WireCodec):
 
 class CastCodec(WireCodec):
     """Downcast on encode, upcast on decode (Ott et al. 2018 fp16
-    wire)."""
+    wire).  A float8 target rounds as the reference's cast does
+    (``comm.fp8_encode``)."""
 
     linear = True
 
     def __init__(self, target_dtype, name: Optional[str] = None):
-        self.target = comm.dtype_name(target_dtype)
+        self.target = canonical_dtype(target_dtype)
         self.name = name or self.target
 
     def wire_dtype(self, native_dtype: str) -> str:
         return self.target
 
     def encode(self, buf):
-        return buf.to(comm.torch_dtype(self.target)), None
+        dt = comm.torch_dtype(self.target)
+        if comm.is_fp8(dt) and buf.dtype != dt:
+            return comm.fp8_encode(buf, dt), None
+        return buf.to(dt), None
 
     def decode(self, wire, scale, native_dtype):
         return wire.to(comm.torch_dtype(native_dtype))
@@ -303,6 +369,11 @@ register_codec(IdentityCodec())
 register_codec(CastCodec("bfloat16", name="bf16"))
 register_codec(CastCodec("float16", name="f16"))
 register_codec(Int8Codec())
+# fp8 wires on the cast-codec path: e4m3 (3 mantissa bits, range ±448)
+# and e5m2 (2 mantissa bits, range ±57344); linear, so the encoded
+# buffer sums in flight
+register_codec(CastCodec("float8_e4m3fn", name="f8e4m3"))
+register_codec(CastCodec("float8_e5m2", name="f8e5m2"))
 
 
 def available_codecs() -> Tuple[str, ...]:
@@ -312,9 +383,11 @@ def available_codecs() -> Tuple[str, ...]:
 def get_codec(name) -> WireCodec:
     """Resolve a codec by registry name.
 
-    An ``+ef`` suffix wraps the named codec in ``ErrorFeedbackCodec``
-    (cached, so repeated lookups share one instance and one plan-cache
-    identity).
+    Dtype names (``"bfloat16"``, ``"float16"``, ...) resolve to a
+    ``CastCodec``, so the deprecated ``wire_dtype=`` spelling takes any
+    dtype name the port knows.  An ``+ef`` suffix wraps the named codec
+    in ``ErrorFeedbackCodec`` (cached, so repeated lookups share one
+    instance and one plan-cache identity).
     """
     if isinstance(name, WireCodec):
         return name
@@ -327,9 +400,33 @@ def get_codec(name) -> WireCodec:
         return _EF_CACHE[name]
     if name in _CODECS:
         return _CODECS[name]
-    raise ValueError(f"unknown codec {name!r} (registered: "
-                     f"{', '.join(available_codecs())}, each with an "
-                     f"optional {EF_SUFFIX!r} suffix)")
+    try:
+        dt = canonical_dtype(name)
+    except ValueError:
+        raise ValueError(f"unknown codec {name!r} (registered: "
+                         f"{', '.join(available_codecs())}, each with an "
+                         f"optional {EF_SUFFIX!r} suffix, or a dtype "
+                         f"name)") from None
+    if dt in _CODECS:
+        return _CODECS[dt]
+    for c in _CODECS.values():
+        if isinstance(c, CastCodec) and c.target == dt:
+            return c
+    codec = IdentityCodec() if dt == "float32" else CastCodec(dt)
+    register_codec(codec, name=dt)
+    return codec
+
+
+def codec_name_for_wire_dtype(wire_dtype) -> str:
+    """Map the deprecated ``wire_dtype`` flag onto a codec name."""
+    dt = canonical_dtype(wire_dtype)
+    if dt is None or dt == "float32":
+        return "identity"
+    for name, c in _CODECS.items():
+        if isinstance(c, CastCodec) and c.target == dt:
+            return name
+    get_codec(dt)
+    return dt
 
 
 def is_int8(codec: WireCodec) -> bool:
@@ -354,3 +451,9 @@ def sum_decoded(codec: WireCodec, gathered_wire: torch.Tensor,
         chunks = chunks * gathered_scales.reshape(
             (n_chunks, 1)).to(torch.float32)
     return chunks.sum(dim=0).to(comm.torch_dtype(native_dtype))
+
+
+def padded_elems(n_elems: int, n_workers: int) -> int:
+    """Round ``n_elems`` up to a multiple of ``n_workers`` (tiled
+    reduce-scatter / ring-chunking padding)."""
+    return -(-n_elems // max(n_workers, 1)) * max(n_workers, 1)

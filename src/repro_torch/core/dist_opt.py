@@ -7,7 +7,11 @@ statically compiled ``ExchangePlan`` per gradient-tree structure
     opt = DistributedOptimizer(base, exchange=ExchangeConfig(
         sparse_as_dense=True, use_kernel=True), group=dist.group.WORLD)
 
-``group=None`` is the local path (no collectives, no averaging).  The
+``group`` is a process group, a tuple of process groups (one per level
+of a hierarchical backend, outermost first:
+``(cross_pod_group, within_pod_group)``) or ``None`` for the local path
+(no collectives, no averaging).  Averaging divides by the product of the
+levels' sizes.  The
 codec's ``ExchangeState`` (error-feedback residuals for ``"int8+ef"``,
 empty entries for a stateless codec) is threaded through
 ``exchange(grads, state) -> (tree, state)``; ``init_exchange_state``

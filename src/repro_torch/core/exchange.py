@@ -3,9 +3,11 @@ and cross-worker gradient exchange.
 
 The torch counterpart of ``repro.core.exchange``, for the configuration
 space this port carries: the wire codecs of ``repro_torch.core.codecs``
-(identity, bf16/f16 casts, int8, each with optional error feedback) and
-flat collectives over one process group.  Per gradient-tree structure
-it compiles, once:
+(identity, bf16/f16/fp8 casts, int8, each with optional error feedback)
+and the collective backends of ``repro_torch.core.backend`` (flat,
+hierarchical, ring simulation) over a process group or a tuple of them
+(one per mesh level, outermost first).  Per gradient-tree structure it
+compiles, once:
 
   1. **classify** every leaf's contribution list through the configured
      accumulation rule (paper Alg. 1 / Alg. 2 / the ``sparse_as_dense``
@@ -13,7 +15,9 @@ it compiles, once:
   2. **bucket** dense leaves into Horovod-style fusion buffers
      (first-fit-decreasing, one group per codec wire dtype) and give each
      sparse IndexedSlices leaf its own gather stage;
-  3. a **BucketSchedule**: one stage per bucket, sorted reverse-layer
+  3. **select a collective** per dense bucket: allreduce, or
+     reduce-scatter + allgather (``reduce_scatter=True``);
+  4. a **BucketSchedule**: one stage per bucket, sorted reverse-layer
      (descending readiness key).
 
 ``execute_fused`` runs the stages serially: accumulate, pack (the
@@ -26,12 +30,20 @@ before any stage unpacks; ``execute`` picks one by
 snapped to top-level blocks, so ``backward_block_stages`` can hand each
 block's stages to a hook inside the backward pass
 (``training.gradients.wait_free_grad_exchange``).  Linear codecs
-allreduce the wire; non-linear ones (int8) allgather (values, scales)
-and sum after decode.  Every codec threads an ``ExchangeState`` through
-the exchange (empty entries for stateless codecs).
-The plan is the single source of the byte accounting (``wire_bytes`` /
-``buffer_bytes`` / ``n_collectives`` / ``state_bytes``), which equals the
-reference plan's for the same tree exactly.
+allreduce the wire (or reduce-scatter it, then allgather the shards);
+non-linear ones (int8) allgather (values, scales) and sum after decode,
+and on the hierarchical backend do so one level at a time, re-encoding
+the partial sum between levels (``_hop_reduce_dense``).  Such a stage is
+a chain: hop k+1's encode needs hop k's decode-sum, so it waits on its
+own earlier hops inside ``launch_stage`` (on NCCL a stream wait) and
+leaves only its last hop in flight.  Every codec threads an
+``ExchangeState`` through the exchange (empty entries for stateless
+codecs).
+The plan is the single source of the byte and launch accounting
+(``wire_bytes`` / ``hop_wire_bytes`` / ``buffer_bytes`` /
+``n_collectives`` / ``hlo_collectives`` / ``state_bytes``), which equals
+the reference plan's for the same tree exactly; each stage delegates to
+the backend.
 """
 from __future__ import annotations
 
@@ -41,26 +53,32 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core import accumulation, codecs, comm, fusion
+from repro_torch.core import accumulation, backend as backend_lib, codecs, \
+    comm, fusion
+from repro_torch.core.backend import ALLGATHER, ALLREDUCE, REDUCE_SCATTER
 from repro_torch.core.codecs import ExchangeState
 from repro_torch.core.indexed_slices import IndexedSlices, concat_slices
 from repro_torch.tree import tree_flatten, tree_unflatten
 
-ALLREDUCE = "allreduce"
+Levels = Union[int, Sequence[int]]
 
 
 @dataclasses.dataclass(frozen=True)
 class ExchangeConfig:
-    """Everything the planner needs to know, all static.  Collectives
-    are flat over one process group.  ``codec`` names an entry of the
-    ``repro_torch.core.codecs`` registry; ``error_feedback`` is
-    normalised onto it in ``__post_init__``, so equivalent configs
-    compare, hash and cache identically."""
+    """Everything the planner needs to know, all static.  ``codec`` and
+    ``backend`` name entries of the ``repro_torch.core.codecs`` and
+    ``repro_torch.core.backend`` registries.  ``error_feedback`` and the
+    deprecated spellings ``wire_dtype`` and ``hierarchical`` are
+    normalised onto ``codec`` and ``backend`` in ``__post_init__``, so
+    equivalent configs compare, hash and cache identically."""
     algorithm: str = "tf_algorithm1"         # paper Alg. 1 (TF upstream)
     sparse_as_dense: bool = False            # Horovod Listing-1 pre-pass
     fusion_threshold: Optional[int] = None   # bytes; None = bucket/leaf
+    reduce_scatter: bool = False             # RS+AG instead of allreduce
     use_kernel: bool = False                 # densify kernel
     codec: str = "identity"                  # WireCodec registry name
+    backend: str = backend_lib.DEFAULT_BACKEND   # CollectiveBackend name
+    hierarchy_levels: int = 2                # levels a hierarchical plan spans
     error_feedback: bool = False             # -> codec="<codec>+ef"
     overlap: Union[bool, str] = False        # False | "staged" | "backward".
     #                                          "staged" (legacy True): every
@@ -69,6 +87,9 @@ class ExchangeConfig:
     #                                          "backward": buckets snap to
     #                                          top-level blocks and launch
     #                                          from inside the backward pass
+    # -- deprecated spellings, folded into codec/backend ---------------------
+    wire_dtype: Optional[str] = None         # -> codec=<cast codec>
+    hierarchical: bool = False               # -> backend="hierarchical"
 
     def __post_init__(self):
         if self.algorithm not in ("tf_algorithm1", "proposed_algorithm2"):
@@ -85,18 +106,61 @@ class ExchangeConfig:
             raise ValueError(f"unknown overlap mode: {self.overlap!r} "
                              f"(expected False, 'staged' or 'backward')")
         object.__setattr__(self, "overlap", ov)
+        if self.wire_dtype is not None:
+            mapped = codecs.codec_name_for_wire_dtype(self.wire_dtype)
+            if self.codec not in ("identity", mapped):
+                raise ValueError(
+                    f"conflicting wire_dtype={self.wire_dtype!r} and "
+                    f"codec={self.codec!r}")
+            object.__setattr__(self, "codec", mapped)
+            object.__setattr__(self, "wire_dtype", None)
         if self.error_feedback:
             name = codecs.get_codec(self.codec).name
             if not name.endswith(codecs.EF_SUFFIX):
                 name += codecs.EF_SUFFIX
             object.__setattr__(self, "codec", name)
             object.__setattr__(self, "error_feedback", False)
-        # resolve + normalise the registry name (raises on unknown ones)
+        if self.hierarchical:
+            if self.backend not in (backend_lib.DEFAULT_BACKEND,
+                                    "hierarchical"):
+                raise ValueError(
+                    f"conflicting hierarchical=True and "
+                    f"backend={self.backend!r}")
+            object.__setattr__(self, "backend", "hierarchical")
+            object.__setattr__(self, "hierarchical", False)
+        # resolve + normalise the registry names (raises on unknown ones)
         object.__setattr__(self, "codec", codecs.get_codec(self.codec).name)
+        backend_lib.get_backend(self.backend)
+        if self.reduce_scatter:
+            if not self.codec_obj.linear:
+                raise ValueError(
+                    f"codec {self.codec!r} is non-linear (quantised wires "
+                    f"cannot be reduced in flight) and has no "
+                    f"reduce_scatter path; use the default allreduce")
+            if self.codec_obj.stateful:
+                raise ValueError(
+                    f"codec {self.codec!r} is stateful; the RS+AG "
+                    f"decomposition has no stateful encode hook — use "
+                    f"the default allreduce")
+            if self.backend == "hierarchical":
+                raise ValueError("hierarchical backend has no RS+AG path; "
+                                 "use backend='flat' or 'ringsim'")
 
     @property
     def codec_obj(self) -> codecs.WireCodec:
         return codecs.get_codec(self.codec)
+
+    @property
+    def backend_obj(self) -> backend_lib.CollectiveBackend:
+        return backend_lib.get_backend(self.backend)
+
+    @property
+    def is_hierarchical(self) -> bool:
+        return self.backend == "hierarchical"
+
+    @property
+    def dense_collective(self) -> str:
+        return REDUCE_SCATTER if self.reduce_scatter else ALLREDUCE
 
     @property
     def overlap_backward(self) -> bool:
@@ -307,29 +371,80 @@ class ExchangePlan:
         return sum(self.stage_collectives(s) for s in self.schedule.stages)
 
     def stage_collectives(self, stage: BucketStage) -> int:
-        """Logical collectives one stage launches: one allreduce per
-        dense stage and one allgather per gather stage for linear
-        codecs; a values and a scales allgather per stage for non-linear
-        ones (the gather stage's indices are billed with its values, as
-        the reference does)."""
-        return 1 if self.config.codec_obj.linear else 2
+        """Logical collectives one stage launches (P-independent)."""
+        if not self.config.codec_obj.linear:
+            # non-linear codecs never reduce in flight: every bucket is a
+            # values and a scales allgather (the gather stage's indices
+            # are billed with its values); on the hierarchical backend a
+            # dense bucket runs one such round per level
+            if stage.kind == "dense" and self.config.is_hierarchical:
+                return 2 * self.config.hierarchy_levels
+            return 2
+        be = self.config.backend_obj
+        nl = self.config.hierarchy_levels
+        if stage.kind == "dense":
+            return be.logical_collectives(
+                self.dense_buckets[stage.bucket_id].collective, nl)
+        return be.logical_collectives(ALLGATHER, nl)
 
-    def stage_wire_bytes(self, stage: BucketStage, n_workers: int) -> int:
-        """Bytes one stage moves per worker (the reference's flat-backend
-        formulas): a ring allreduce of the wire for linear codecs, an
-        allgather of the encoded payload otherwise."""
-        if n_workers <= 1:
-            return 0
-        codec = self.config.codec_obj
+    def stage_wire_bytes(self, stage: BucketStage, n_workers: Levels) -> int:
+        """Bytes one stage moves per worker (sum over the level hops)."""
+        return sum(self.stage_hop_wire_bytes(stage, n_workers))
+
+    def stage_hop_wire_bytes(self, stage: BucketStage, n_workers: Levels
+                             ) -> Tuple[int, ...]:
+        """Per-level wire bytes of one stage, outermost level first; flat
+        backends report one hop, the hierarchical one bills each level
+        (for non-linear codecs the requantized payload per hop)."""
+        levels = self._levels(n_workers)
+        be = self.config.backend_obj
         if stage.kind == "dense":
             b = self.dense_buckets[stage.bucket_id]
-            if not codec.linear:
-                return (n_workers - 1) * codec.wire_bytes(b.n_elems,
-                                                          b.wire_dtype)
-            return comm.allreduce_wire_bytes((b.n_elems,), b.wire_dtype,
-                                             n_workers)
-        return (n_workers - 1) * self._gather_payload_bytes(
-            self.leaf_specs[stage.bucket_id])
+            return be.dense_hop_wire_bytes(b.collective, b.n_elems,
+                                           b.wire_dtype,
+                                           self.config.codec_obj, levels)
+        return be.gather_hop_wire_bytes(
+            self._gather_payload_bytes(self.leaf_specs[stage.bucket_id]),
+            levels)
+
+    def _gather_tensors(self) -> int:
+        """Tensors one gather stage exchanges: indices and values, plus
+        scales for a non-linear codec."""
+        return 2 + (0 if self.config.codec_obj.linear else 1)
+
+    def stage_hlo_collectives(self, stage: BucketStage,
+                              n_workers: Levels) -> int:
+        """Collective calls one stage issues through the comm layer (the
+        reference's HLO op count of the same stage)."""
+        levels = self._levels(n_workers)
+        be = self.config.backend_obj
+        if stage.kind == "dense":
+            b = self.dense_buckets[stage.bucket_id]
+            return be.hlo_ops_dense(b.collective, self.config.codec_obj,
+                                    levels)
+        return be.hlo_ops_gather(self._gather_tensors(), levels)
+
+    def stage_hop_ops(self, stage: BucketStage, n_workers: Levels
+                      ) -> Tuple[int, ...]:
+        """Per-level collective calls of one stage, split as
+        ``stage_hop_wire_bytes``; sums to ``stage_hlo_collectives``."""
+        levels = self._levels(n_workers)
+        be = self.config.backend_obj
+        if stage.kind == "dense":
+            b = self.dense_buckets[stage.bucket_id]
+            return be.dense_hop_ops(b.collective, self.config.codec_obj,
+                                    levels)
+        return be.gather_hop_ops(self._gather_tensors(), levels)
+
+    def _levels(self, n_workers: Levels) -> Tuple[int, ...]:
+        levels = (tuple(n_workers) if not isinstance(n_workers, int)
+                  else (n_workers,))
+        if self.config.is_hierarchical \
+                and len(levels) != self.config.hierarchy_levels:
+            raise ValueError(
+                f"hierarchical plan with {self.config.hierarchy_levels} "
+                f"levels needs per-level worker counts, got {n_workers!r}")
+        return levels
 
     def _gather_payload_bytes(self, spec: SparseSpec) -> int:
         """Per-worker encoded IndexedSlices payload (values in the wire
@@ -338,24 +453,46 @@ class ExchangePlan:
         return (codec.wire_bytes(spec.rows * spec.row_elems, spec.dtype)
                 + spec.rows * comm.dtype_bytes(spec.index_dtype))
 
-    def wire_bytes(self, n_workers: int) -> int:
-        """Bytes moved per worker per step (sum over the stages)."""
+    def wire_bytes(self, n_workers: Levels) -> int:
+        """Bytes moved per worker per step (sum over the stages).  A
+        hierarchical plan takes ``n_workers`` as a per-level tuple,
+        outermost first (e.g. ``(n_pods, workers_per_pod)``)."""
         return sum(self.stage_wire_bytes(s, n_workers)
                    for s in self.schedule.stages)
 
-    def buffer_bytes(self, n_workers: int) -> int:
+    def hop_wire_bytes(self, n_workers: Levels) -> Tuple[int, ...]:
+        """Per-level wire bytes summed over the stages (outermost level
+        first); sums to ``wire_bytes``."""
+        out = [0] * len(self._levels(n_workers))
+        for stage in self.schedule.stages:
+            for k, b in enumerate(self.stage_hop_wire_bytes(stage,
+                                                            n_workers)):
+                out[k] += b
+        return tuple(out)
+
+    def hlo_collectives(self, n_workers: Levels) -> int:
+        """Collective calls one exchange issues through the comm layer
+        (``comm.calls()`` summed, ``two_level_all_reduce`` aside, which
+        issues its levels' allreduces): the reference's exact HLO
+        collective count of the same plan."""
+        return sum(self.stage_hlo_collectives(s, n_workers)
+                   for s in self.schedule.stages)
+
+    def buffer_bytes(self, n_workers: Levels) -> int:
         """Size of the accumulated representation each worker holds after
         exchange (paper Fig. 3 / Fig. 5): gather buffers grow linearly in
         P (wire-dtype values, native indices and one scale per worker for
         sided codecs), dense buffers are constant."""
+        p = (n_workers if isinstance(n_workers, int)
+             else math.prod(n_workers))
         codec = self.config.codec_obj
         total = self.dense_bytes
         for i in self.gather_leaf_ids:
             s = self.leaf_specs[i]
             total += comm.gathered_buffer_bytes(
-                s.rows, s.row_elems, codec.wire_dtype(s.dtype), n_workers,
+                s.rows, s.row_elems, codec.wire_dtype(s.dtype), p,
                 index_dtype=s.index_dtype)
-            total += n_workers * codec.scale_bytes
+            total += p * codec.scale_bytes
         return total
 
     @property
@@ -436,9 +573,13 @@ class ExchangePlan:
         parts = []
         for slot in bucket.slots:
             leaf_id = self.dense_leaf_ids[slot.leaf_idx]
-            x = _materialise(leaves[leaf_id], self.config)
-            parts.append(x.reshape(-1).to(pack))
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+            x = _materialise(leaves[leaf_id], self.config).reshape(-1)
+            if comm.is_fp8(pack):          # the reference's rounding
+                parts.append(comm.fp8_encode(x, pack).view(torch.uint8))
+            else:
+                parts.append(x.to(pack))
+        buf = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return buf.view(pack)
 
     def unpack_bucket(self, bucket: DenseBucket, buf: torch.Tensor,
                       out: List[Any], inv_scale: Optional[float]) -> None:
@@ -452,57 +593,128 @@ class ExchangePlan:
                 x = x * inv_scale
             out[leaf_id] = x
 
-    def _launch_dense(self, stage: BucketStage, leaves: List[Any],
-                      group: comm.Group, bstate) -> Tuple[Tuple, Any]:
-        """Pack one dense bucket, encode it and issue its collective(s).
-        Linear codecs return the reduced wire (decode is the unpack
-        upcast); non-linear codecs return the gathered (wire, scales)
-        pair, decoded and summed at finish (or, on the local path, their
-        own decode).  Returns (inflight, new bucket state)."""
+    def _check_groups(self, group: comm.Group) -> Tuple:
+        """``group`` as a tuple of process groups, checked against the
+        backend: the hierarchical one takes ``hierarchy_levels`` groups
+        (outermost first), the others one."""
+        groups = comm.groups(group)
+        if not groups:
+            return groups
+        if self.config.is_hierarchical:
+            if len(groups) != self.config.hierarchy_levels:
+                raise ValueError(
+                    f"hierarchical plan spans {self.config.hierarchy_levels}"
+                    f" levels but got {len(groups)} process groups")
+        elif len(groups) != 1:
+            raise ValueError(
+                f"backend {self.config.backend!r} runs over one process "
+                f"group, got {len(groups)} (a tuple of groups needs "
+                f"backend='hierarchical')")
+        return groups
+
+    def _hop_reduce_dense(self, buf: torch.Tensor, bstate, groups: Tuple
+                          ) -> Tuple[Tuple, Any]:
+        """Per-hop requantizing reduction of one packed bucket on the
+        hierarchical backend: innermost level first, each level encodes,
+        allgathers (values, scales) over its group and decode-sums, and
+        the f32 partial sum is re-encoded (``requantize``) for the next
+        level, so every hop moves the quantised payload of its own group
+        only.  Hop 0 is the only stateful encode.  Each hop but the last
+        is waited for here (hop k+1 encodes hop k's sum); the last hop's
+        gathers are returned in flight, with their chunk count, for
+        ``_finish_dense`` to decode-sum."""
         codec = self.config.codec_obj
-        buf = self.pack_bucket(self.dense_buckets[stage.bucket_id], leaves)
+        be = self.config.backend_obj
+        last = len(groups) - 1
+        for level, g in enumerate(reversed(groups)):
+            wire, scale, bstate = codec.encode_hop(buf, bstate, level)
+            p_k = comm.axis_size(g)
+            g_wire = be.all_gather(wire, (g,))
+            g_scale = (be.all_gather(scale, (g,))
+                       if scale is not None else None)
+            if level == last:
+                return (g_wire, g_scale, p_k), bstate
+            buf = codec.reduce_hop(comm.wait(g_wire), comm.wait(g_scale),
+                                   p_k, torch.float32)
+
+    def _launch_dense(self, stage: BucketStage, leaves: List[Any],
+                      groups: Tuple, p: int, bstate) -> Tuple[Tuple, Any]:
+        """Pack one dense bucket, encode it and issue its collective(s)
+        through the backend.  Linear codecs return the reduced wire
+        (decode is the unpack upcast): an allreduce, or a reduce-scatter
+        of the buffer padded to a multiple of P whose shard is then
+        allgathered.  Non-linear codecs return the gathered (wire,
+        scales, chunks) triple, decoded and summed at finish (on the
+        hierarchical backend, the last hop of ``_hop_reduce_dense``; on
+        the local path, their own decode).  Returns (inflight, new
+        bucket state)."""
+        codec = self.config.codec_obj
+        be = self.config.backend_obj
+        bucket = self.dense_buckets[stage.bucket_id]
+        buf = self.pack_bucket(bucket, leaves)
+        if not codec.linear and self.config.is_hierarchical \
+                and len(groups) > 1:
+            return self._hop_reduce_dense(buf, bstate, groups)
         # stateless linear codecs packed straight into the wire dtype, so
         # their encode returns the packed buffer itself
         wire, scale, bstate = codec.encode_stateful(buf, bstate)
         if codec.linear:
-            if group is None:
+            if scale is not None:
+                raise ValueError(f"linear codec {codec.name!r} returned "
+                                 f"side scales; scales cannot be summed "
+                                 f"in flight")
+            if not groups:
                 return (wire,), bstate
-            return (comm.all_reduce_dense(wire, group, average=False),), bstate
+            if bucket.collective == REDUCE_SCATTER:
+                pad = -wire.shape[0] % p
+                if pad:
+                    wire = torch.cat([comm._bits(wire),
+                                      comm._bits(wire).new_zeros(pad)]
+                                     ).view(wire.dtype)
+                # the allgather takes the reduce-scatter's shard: wait
+                # for it here (on NCCL a stream wait)
+                shard = comm.wait(be.reduce_scatter(wire, groups))
+                return (comm.then(be.all_gather(shard, groups),
+                                  lambda full: full[:bucket.n_elems]),), \
+                    bstate
+            return (be.all_reduce(wire, groups),), bstate
         # quantised: every worker has its own scale, so the wire cannot
         # be reduced in flight — allgather (values, scales)
-        if group is None:
+        if not groups:
             return (codecs.sum_decoded(codec, wire, scale, 1,
                                        torch.float32),), bstate
-        return (comm.all_gather_dense(wire, group),
-                comm.all_gather_dense(scale, group)), bstate
+        return (be.all_gather(wire, groups), be.all_gather(scale, groups),
+                p), bstate
 
     def _finish_dense(self, stage: BucketStage, inflight: Tuple,
-                      out: List[Any], inv_scale: Optional[float],
-                      p: int) -> None:
+                      out: List[Any], inv_scale: Optional[float]) -> None:
         """Wait, decode-sum (gathered non-linear payloads) + unpack."""
-        inflight = tuple(comm.wait(x) for x in inflight)
-        buf = inflight[0]
-        if len(inflight) == 2:
-            buf = codecs.sum_decoded(self.config.codec_obj, inflight[0],
-                                     inflight[1], p, torch.float32)
+        if len(inflight) == 3:
+            g_wire, g_scale, n_chunks = inflight
+            buf = self.config.codec_obj.reduce_hop(
+                comm.wait(g_wire), comm.wait(g_scale), n_chunks,
+                torch.float32)
+        else:
+            buf = comm.wait(inflight[0])
         self.unpack_bucket(self.dense_buckets[stage.bucket_id], buf, out,
                            inv_scale)
 
     def _launch_gather(self, stage: BucketStage, leaves: List[Any],
-                       group: comm.Group) -> Tuple:
+                       groups: Tuple) -> Tuple:
         """Encode the accumulated IndexedSlices leaf's values and
-        allgather (indices, wire[, scales]).  Only the wire is narrow:
-        decode happens at finish, before the scatter-add."""
+        allgather (indices, wire[, scales]) through the backend.  Only
+        the wire is narrow: decode happens at finish, before the
+        scatter-add."""
         s = leaves[stage.bucket_id]
+        be = self.config.backend_obj
         wire, scale = self.config.codec_obj.encode(s.values)
         rows = s.values.shape[0]
-        if group is None:
+        if not groups:
             return (s.indices, wire, scale, rows)
-        g_scales = (comm.all_gather_dense(scale, group)
+        g_scales = (be.all_gather(scale, groups)
                     if scale is not None else None)
-        return (comm.all_gather_dense(s.indices, group),
-                comm.all_gather_dense(wire, group), g_scales,
-                rows)
+        return (be.all_gather(s.indices, groups),
+                be.all_gather(wire, groups), g_scales, rows)
 
     def _finish_gather(self, stage: BucketStage, inflight: Tuple,
                        out: List[Any], inv_scale: Optional[float],
@@ -532,12 +744,17 @@ class ExchangePlan:
     def launch_stage(self, stage: BucketStage, leaves: List[Any],
                      group: comm.Group, bstate: Any = ()
                      ) -> Tuple[Tuple, Any]:
-        """Pack + issue one stage's collective(s), asynchronously;
-        returns ``(inflight, new bucket state)``: the payload
-        ``finish_stage`` waits for and consumes."""
+        """Pack + issue one stage's collective(s) over ``group`` (a
+        process group, a tuple of them, or None); returns ``(inflight,
+        new bucket state)``: the payload ``finish_stage`` waits for and
+        consumes.  A stage of several hops (reduce-scatter then
+        allgather, the hierarchical per-hop reduction) waits here on all
+        but its last."""
+        groups = self._check_groups(group)
         if stage.kind == "dense":
-            return self._launch_dense(stage, leaves, group, bstate)
-        return self._launch_gather(stage, leaves, group), bstate
+            return self._launch_dense(stage, leaves, groups,
+                                      comm.axis_size(groups), bstate)
+        return self._launch_gather(stage, leaves, groups), bstate
 
     def finish_stage(self, stage: BucketStage, inflight: Tuple,
                      out: List[Any], inv_scale: Optional[float],
@@ -545,7 +762,7 @@ class ExchangePlan:
         """Unpack one launched stage into ``out`` (decode, densify
         gathers, restore dtypes, apply averaging)."""
         if stage.kind == "dense":
-            self._finish_dense(stage, inflight, out, inv_scale, p)
+            self._finish_dense(stage, inflight, out, inv_scale)
         else:
             self._finish_gather(stage, inflight, out, inv_scale, p)
 
@@ -593,8 +810,9 @@ class ExchangePlan:
                         state):
         state = self._check_state(state, grads)
         raw = self._flatten_checked(grads)
-        p = comm.axis_size(group)
-        inv_scale = (1.0 / p) if average and group is not None else None
+        groups = self._check_groups(group)
+        p = comm.axis_size(groups)
+        inv_scale = (1.0 / p) if average and groups else None
         return state, raw, p, inv_scale
 
     def execute(self, grads, group: comm.Group, average: bool = True,
@@ -738,7 +956,7 @@ def _build_plan(treedef, contrib_specs: Tuple[Tuple[LeafSpec, ...], ...],
             slots = tuple(dataclasses.replace(s, leaf_idx=s.leaf_idx + base)
                           for s in bucket)
             buckets.append(DenseBucket(
-                slots=slots, collective=ALLREDUCE,
+                slots=slots, collective=config.dense_collective,
                 n_elems=sum(s.size for s in slots), wire_dtype=dt))
         base += len(ids)
 

@@ -11,9 +11,15 @@ Strategy flags map 1:1 to the paper:
   --grad-accum sparse_gather   TF Algorithm 1 (gather; the pathology)
   --grad-accum dense_reduce    sparse_as_dense=True (the paper's fix)
 
-The gradient wire is ``--codec {identity,bf16,f16,int8}``;
+The gradient wire is ``--codec {identity,bf16,f16,f8e4m3,f8e5m2,int8}``
+(``--wire-dtype bf16`` is the deprecated spelling of ``--codec bf16``);
 ``--error-feedback`` makes it ``<codec>+ef`` (a per-bucket f32 residual
-threaded from step to step).  ``--overlap staged`` launches every
+threaded from step to step).  ``--backend {flat,hierarchical,ringsim}``
+picks how a bucket crosses the workers: one collective over the world,
+one allreduce per level of a 2 x P/2 (pod, data) world (each rank joins
+its cross-pod and its within-pod group, ranks pod-major), or the literal
+send/recv ring.  ``--reduce-scatter`` exchanges dense buckets as
+reduce-scatter + allgather.  ``--overlap staged`` launches every
 bucket's collective before any unpacks; ``--overlap backward`` launches
 each block's buckets from inside the backward pass (wait-free backprop).  The densify and quantize kernels are always
 on the exchange path (``ExchangeConfig(use_kernel=True)``).  Runs on the
@@ -37,7 +43,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import (DistributedOptimizer, ExchangeConfig,
-                              available_codecs)
+                              available_backends, available_codecs)
 from repro_torch.data import make_pipeline
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, noam_schedule
@@ -56,11 +62,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--algorithm", default="tf_algorithm1",
                     choices=["tf_algorithm1", "proposed_algorithm2"])
     ap.add_argument("--fusion-threshold", type=int, default=None)
+    ap.add_argument("--reduce-scatter", action="store_true",
+                    help="exchange dense buckets via reduce-scatter + "
+                         "allgather instead of allreduce")
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=[None, "bf16", "bfloat16", "f16", "float16"],
+                    help="deprecated spelling of --codec: downcast "
+                         "fusion buffers to this dtype on the wire")
     ap.add_argument("--codec", default="identity",
                     help="WireCodec registry name for the gradient wire "
                          f"(registered: {', '.join(available_codecs())}; "
                          "append '+ef' to any name, or pass "
                          "--error-feedback, for error feedback)")
+    ap.add_argument("--backend", default="flat",
+                    help="CollectiveBackend registry name (registered: "
+                         f"{', '.join(available_backends())})")
     ap.add_argument("--error-feedback", action="store_true",
                     help="wrap the codec in ErrorFeedbackCodec: keep a "
                          "per-bucket f32 residual of the wire's "
@@ -133,9 +149,26 @@ def build_optimizer(args, cfg, group) -> DistributedOptimizer:
         sparse_as_dense=args.grad_accum == "dense_reduce",
         algorithm=args.algorithm,
         fusion_threshold=args.fusion_threshold,
-        codec=args.codec, error_feedback=args.error_feedback,
+        reduce_scatter=args.reduce_scatter, wire_dtype=args.wire_dtype,
+        codec=args.codec, backend=args.backend,
+        error_feedback=args.error_feedback,
         overlap=args.overlap or False, use_kernel=True)
     return DistributedOptimizer(base, exchange=exchange, group=group)
+
+
+def pod_groups(rank: int, world: int):
+    """``(cross_pod_group, within_pod_group)`` of ``rank`` in a world laid
+    out as 2 pods of ``world // 2`` ranks, pod-major (the reference's
+    ``Mesh(devices.reshape(2, n // 2), ("pod", "data"))``).  Every rank
+    creates every group, in the same order, as ``new_group`` requires."""
+    if world % 2:
+        raise SystemExit("hierarchical backend needs an even worker count "
+                         "(2 emulated pods)")
+    half = world // 2
+    within = [dist.new_group(list(range(p * half, (p + 1) * half)))
+              for p in range(2)]
+    cross = [dist.new_group([d, half + d]) for d in range(half)]
+    return cross[rank % half], within[rank // half]
 
 
 def meta_worker_grads(args, model, pipe, sparse_embedding: bool):
@@ -174,8 +207,12 @@ def run(argv=None, log: Optional[Callable[[str], None]] = None
         log = print if rank == 0 else (lambda s: None)
     try:
         if args.dist == "horovod":
-            log(f"horovod mode: {world} workers "
-                f"({dist.get_backend(group)}), global batch "
+            shape = ""
+            if args.backend == "hierarchical":
+                group = pod_groups(rank, world)
+                shape = f"2x{world // 2} pod/data, "
+            log(f"horovod mode: {world} workers ({shape}"
+                f"{dist.get_backend()}), global batch "
                 f"{args.batch_per_worker * world}x{args.seq_len} tokens")
         params = model.init(seed=args.seed, device=device)
         opt = build_optimizer(args, cfg, group)

@@ -145,9 +145,9 @@ def wait_free_grad_exchange(model, opt, params, batch, *, state=None,
         model, params, batch, sparse_embedding=sparse_embedding,
         partial=partial)
     plan = opt.plan(structs)
-    group = opt.group
-    p = comm.axis_size(group)
-    inv_scale = (1.0 / p) if opt.average and group is not None else None
+    group = opt.group          # a process group, a tuple of them, or None
+    p = comm.axis_size(group)  # the product of the levels' sizes
+    inv_scale = (1.0 / p) if opt.average and comm.groups(group) else None
     stage_states = list(plan._check_state(state, params).bucket_states)
     stages = plan.schedule.stages
 

@@ -1,8 +1,9 @@
 """Workers for the port's multi-process tests (gloo on the CPU).
 
 Imported by the spawned processes of tests/test_torch_exchange.py
-(``run``) and tests/test_torch_overlap.py (``run_overlap``); it imports
-torch and the port only.
+(``run``), tests/test_torch_overlap.py (``run_overlap``) and
+tests/test_torch_backend_world.py (``run_backends``); it imports torch
+and the port only.
 """
 import numpy as np
 import torch
@@ -148,3 +149,155 @@ def run_overlap(rank: int, world: int, port: int, out_dir: str) -> None:
         torch.save(results, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+#: per backend-world exchange: (backend, ExchangeConfig keywords); each
+#: runs twice in a row with the codec state threaded through
+BACKEND_CONFIGS = {
+    "flat/identity": ("flat", dict(sparse_as_dense=True)),
+    "hierarchical/identity": ("hierarchical", dict(sparse_as_dense=True)),
+    "ringsim/identity": ("ringsim", dict(sparse_as_dense=True)),
+    "flat/int8+ef": ("flat", dict(sparse_as_dense=True, codec="int8+ef")),
+    "hierarchical/int8+ef": ("hierarchical",
+                             dict(sparse_as_dense=True, codec="int8+ef")),
+    "hierarchical/int8": ("hierarchical",
+                          dict(sparse_as_dense=True, codec="int8")),
+    "ringsim/int8+ef": ("ringsim",
+                        dict(sparse_as_dense=True, codec="int8+ef")),
+    "flat/rs_identity": ("flat", dict(sparse_as_dense=True,
+                                      reduce_scatter=True)),
+    "flat/rs_bf16": ("flat", dict(sparse_as_dense=True, reduce_scatter=True,
+                                  codec="bf16")),
+    "ringsim/rs_identity": ("ringsim", dict(sparse_as_dense=True,
+                                            reduce_scatter=True)),
+    "ringsim/rs_bf16": ("ringsim", dict(sparse_as_dense=True,
+                                        reduce_scatter=True, codec="bf16")),
+    "flat/f8e4m3": ("flat", dict(sparse_as_dense=True, codec="f8e4m3")),
+    "hierarchical/f8e5m2": ("hierarchical",
+                            dict(sparse_as_dense=True, codec="f8e5m2")),
+    "flat/sparse_gather_int8": ("flat", dict(codec="int8")),
+    "hierarchical/sparse_gather_int8": ("hierarchical", dict(codec="int8")),
+    "ringsim/sparse_gather_int8": ("ringsim", dict(codec="int8")),
+}
+#: the configs the world of 8 runs (averaging over 8 and over 2 x 4)
+WORLD8_CONFIGS = ("flat/identity", "hierarchical/identity")
+RING_ELEMS = 1001          # not a multiple of 2, 4 or 8: the ring pads
+FP8_WIRES = {"f8e4m3": torch.float8_e4m3fn, "f8e5m2": torch.float8_e5m2}
+
+
+def ring_input(rank: int, scale: float = 1.0) -> torch.Tensor:
+    rng = np.random.default_rng(500 + rank)
+    return torch.from_numpy(
+        (rng.standard_normal(RING_ELEMS) * scale).astype(np.float32))
+
+
+def run_backends(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Every backend over a gloo world: two exchanges in a row of each
+    ``BACKEND_CONFIGS`` entry (``WORLD8_CONFIGS`` at a world of 8), with
+    the comm layer's call counters and the plan's count, and each int8
+    dense stage's per-hop gathered (q, scales); then (world of 4) the
+    ring primitives on f32 and fp8 buffers, and one training step of
+    the reduced transformer-big per backend, wire and overlap mode."""
+    from repro_torch.core import backend, codecs, comm
+    from repro_torch.launch.train import pod_groups
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        pods = pod_groups(rank, world)
+        world_group = dist.group.WORLD
+
+        def groups_for(be):
+            return pods if be == "hierarchical" else world_group
+
+        def levels_for(be):
+            return (2, world // 2) if be == "hierarchical" else world
+
+        results = {}
+        hops = []
+        reduce_hop = codecs.WireCodec.reduce_hop
+
+        def recording(self, g_wire, g_scales, n_chunks, native_dtype):
+            hops.append((g_wire.clone(), g_scales.clone(), n_chunks))
+            return reduce_hop(self, g_wire, g_scales, n_chunks,
+                              native_dtype)
+
+        codecs.WireCodec.reduce_hop = recording
+        names = WORLD8_CONFIGS if world == 8 else BACKEND_CONFIGS
+        for name in names:
+            be, kw = BACKEND_CONFIGS[name]
+            opt = DistributedOptimizer(
+                adamw(1e-3), exchange=ExchangeConfig(
+                    backend=be, use_kernel=True, **kw),
+                group=groups_for(be))
+            g0 = worker_grads(rank, 0)
+            state = opt.init_exchange_state(g0)
+            for k in range(2):
+                g = worker_grads(rank, k)
+                comm.reset_calls()
+                del hops[:]
+                tree, state = opt.exchange(g, state=state)
+                results[f"{name}/{k}/calls"] = comm.calls()
+                results[f"{name}/{k}/plan_calls"] = opt.plan(
+                    g).hlo_collectives(levels_for(be))
+                results[f"{name}/{k}/hops"] = list(hops)
+                results[f"{name}/{k}/embedding"] = tree["embedding"]
+                results[f"{name}/{k}/w"] = tree["layers"]["w"]
+                results[f"{name}/{k}/b"] = tree["layers"]["b"]
+        codecs.WireCodec.reduce_hop = reduce_hop
+        if world == 4:
+            ring = backend.get_backend("ringsim")
+            x = ring_input(rank)
+            comm.reset_calls()
+            results["ring/all_reduce"] = comm.wait(
+                ring.all_reduce(x, (world_group,)))
+            results["ring/reduce_scatter"] = comm.wait(ring.reduce_scatter(
+                torch.cat([x, x.new_zeros(3)]), (world_group,)))
+            results["ring/all_gather"] = comm.wait(
+                ring.all_gather(x[:5], (world_group,)))
+            results["ring/calls"] = comm.calls()
+            for be in ("flat", "hierarchical", "ringsim"):
+                results[f"broadcast/{be}"] = comm.wait(
+                    backend.get_backend(be).broadcast(
+                        x, comm.groups(groups_for(be)), root=2))
+            for name, dt in FP8_WIRES.items():
+                wire, _ = codecs.get_codec(name).encode(ring_input(rank,
+                                                                   200.0))
+                results[f"ring/{name}/pair"] = comm.ring_all_reduce(
+                    wire, pods[1]).view(torch.uint8)
+                results[f"ring/{name}/world"] = comm.ring_all_reduce(
+                    wire, world_group).view(torch.uint8)
+            _backend_steps(rank, world, groups_for, results)
+        torch.save(results, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _backend_steps(rank, world, groups_for, results) -> None:
+    """One training step of the reduced transformer-big per backend,
+    wire (identity, int8+ef) and overlap mode; parameters, moments and
+    residuals recorded."""
+    cfg = get_config("transformer-big").reduced()
+    model = build_model(cfg)
+    pipe = make_pipeline(cfg, 2 * world, 8, seed=0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(
+        v[2 * rank:2 * rank + 2])) for k, v in pipe.batch_at(0).items()}
+    for be in ("flat", "hierarchical", "ringsim"):
+        for codec in ("identity", "int8+ef"):
+            for overlap in OVERLAPS:
+                opt = DistributedOptimizer(
+                    adamw(1e-3), exchange=ExchangeConfig(
+                        sparse_as_dense=True, codec=codec, overlap=overlap,
+                        backend=be, use_kernel=True), group=groups_for(be))
+                step = make_train_step(model, opt, sparse_embedding=True)
+                params = model.init(seed=0, device="cpu")
+                ex = opt.init_exchange_state(grad_contributions(
+                    model, params, batch, sparse_embedding=True)[0])
+                params, opt_state, ex, _ = step(params, opt.init(params),
+                                                ex, batch)
+                tag = f"step/{be}/{codec}/{overlap}"
+                results[f"{tag}/state"] = (
+                    tree_flatten(params)[0] + tree_flatten(opt_state.mu)[0]
+                    + tree_flatten(opt_state.nu)[0]
+                    + [r for r in ex.bucket_states
+                       if isinstance(r, torch.Tensor)])
