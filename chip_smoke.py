@@ -118,6 +118,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
                two workers' q) bitwise against ``quantize_plain`` at
                every stage size, timed with the L2 flushed beside its
                5 B an element bound;
+     zero1   — ZeRO-1 at a world of 1 over NCCL, full width, 8 x 256
+               tokens, 3 launcher steps a run: ``--zero1`` (dense_reduce
+               and sparse_gather) bitwise against the replicated fused
+               run of the same flags (parameters, losses, Adam moments
+               through the bucket layout); ``--zero1 --codec int8
+               --error-feedback`` and ``--zero1 --param-codec int8``,
+               whose first step through the int8 kernels is bitwise the
+               same step through their plain versions (every gradient
+               shard, the new params, the Zero1State, the residuals); a
+               run stopped after step 2 (``--checkpoint-every 2``) and
+               resumed (``--resume``) bitwise the uninterrupted int8+ef
+               run; ``adamw(state_dtype="bfloat16")`` through
+               ``make_train_step``, zero1 bitwise replicated.  Every
+               run: densify once a step, the int8 encodes and
+               decode-sums the plan implies, ``plan.hlo_collectives(1)``
+               collective calls a step, and the optimizer state's bytes
+               on the card equal to ``optimizer_state_bytes(plan, 1,
+               state_dtype)``; each prints its step ms, device busy ms
+               of one more step (CUDA-only ``torch.profiler``), training
+               state bytes and ``max_memory_allocated``;
   6. prefill — full-width transformer-big's prefill step on one
                32768-token sequence with 256 encoder states:
                ``forward(attn_impl="kernel")`` and ``head`` on the last
@@ -153,6 +173,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                ``small_backends``: 2 steps card vs CPU with
                ``--backend ringsim``, ``--reduce-scatter`` and the
                hierarchical int8+ef path (``group=(WORLD, WORLD)``);
+               ``small_zero1``: 2 steps card vs CPU with ``--zero1
+               --codec int8 --error-feedback`` and ``--zero1
+               --param-codec int8``;
                then its prefill step and 4 translate steps on the card (the
                kernel's f32 path) and the CPU, logits within 3e-5; the
                reduced zamba2 the same (forward, 4-token prefix, 4 decode
@@ -831,6 +854,8 @@ def exchange_plan(train, argv, scaled: bool = False):
     from repro_torch.training.microbatch import _scale_grad_tree
     args = train.parse_args(argv)
     cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
     model = build_model(cfg)
     pipe = make_pipeline(cfg, args.batch_per_worker, args.seq_len,
                          seed=args.seed)
@@ -1806,6 +1831,443 @@ def phase_requantize(Q, train) -> dict:
            "bound_by": "bytes"}
     print(json.dumps({"phase": "backends_requantize", **out}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# zero1: sharded AdamW state, the updated-param allgather, checkpoints
+# ---------------------------------------------------------------------------
+
+#: the zero1 phase's launcher runs, 3 steps each: (tag, grad
+#: accumulation, flags, the tag of the replicated run it must equal
+#: bitwise or None)
+ZERO1_RUNS = (
+    ("replicated", "dense_reduce", [], None),
+    ("zero1", "dense_reduce", ["--zero1"], "replicated"),
+    ("replicated/sparse_gather", "sparse_gather", [], None),
+    ("zero1/sparse_gather", "sparse_gather", ["--zero1"],
+     "replicated/sparse_gather"),
+    ("zero1/int8+ef", "dense_reduce",
+     ["--zero1", "--codec", "int8", "--error-feedback"], None),
+    ("zero1/param_int8", "dense_reduce", ["--zero1", "--param-codec",
+                                          "int8"], None),
+)
+ZERO1_STEPS = 3
+
+
+def zero1_setup(train, argv):
+    """The parsed launcher arguments, the config they name and their
+    pipeline's batches ``0 .. n-1`` on the device, as the launcher makes
+    them at a world of 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    args = train.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    pipe = make_pipeline(cfg, args.batch_per_worker, args.seq_len,
+                         seed=args.seed)
+
+    def batch_at(k):
+        return {key: torch.from_numpy(v).to(args.device)
+                for key, v in pipe.batch_at(k).items()}
+    return args, cfg, batch_at
+
+
+def zero1_counts(D, Q, comm) -> dict:
+    torch.cuda.synchronize()
+    calls = comm.calls()
+    return {"densify": D.densify_kernel.launches,
+            "quantize": Q.quantize_kernel.launches,
+            "quantize_ef": Q.quantize_ef_kernel.launches,
+            "decode_sum": Q.decode_sum_kernel.launches,
+            "collectives": sum(v for k, v in calls.items()
+                               if k != "two_level_all_reduce")}
+
+
+def zero1_want(plan, steps: int) -> dict:
+    """The launches ``steps`` zero1 steps must make, from the plan: one
+    densify a step; an int8 gradient wire encodes every stage (the fused
+    encode on each dense stage under +ef) and decode-sums every dense
+    stage; an int8 param wire adds one stateless encode of each dense
+    stage's f32 shard (its decode is plain PyTorch: each worker's chunk
+    against its own scale, no sum); ``plan.hlo_collectives(1)``
+    collective calls a step."""
+    stages = plan.schedule.stages
+    n_dense = sum(st.kind == "dense" for st in stages)
+    cfg = plan.config
+    grad_int8 = cfg.codec.startswith("int8")
+    param_int8 = cfg.param_codec == "int8"
+    return {"densify": steps,
+            "quantize": steps * ((len(stages) if grad_int8 else 0)
+                                 + (n_dense if param_int8 else 0)),
+            "quantize_ef": steps * n_dense if cfg.codec == "int8+ef" else 0,
+            "decode_sum": steps * n_dense if grad_int8 else 0,
+            "collectives": steps * plan.hlo_collectives(1)}
+
+
+def zero1_reset(D, Q, comm) -> None:
+    torch.cuda.synchronize()
+    Q.reset_launches()
+    D.densify_kernel.launches = 0
+    comm.reset_calls()
+
+
+def zero1_state(result) -> list:
+    """Every tensor a launcher run leaves behind, in the checkpoint
+    walker's order: parameters, optimizer state, residuals."""
+    from repro_torch.checkpoint.checkpoint import flatten_with_paths
+    return [t for _, t in flatten_with_paths(
+        (result["params"], result["opt_state"], result["exchange_state"]))]
+
+
+def zero1_busy_ms(train, argv, result, base=None) -> float:
+    """Device busy ms of one more step from a run's final state (the
+    residuals copied, so the run's own state is left as it was): the
+    kernels, copies and memsets of the step under a CUDA-only
+    ``torch.profiler``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.codecs import ExchangeState
+    from repro_torch.models import build_model
+    from repro_torch.training import make_train_step
+    args, cfg, batch_at = zero1_setup(train, argv)
+    opt = train.build_optimizer(args, cfg, dist.group.WORLD)
+    if base is not None:
+        opt = type(opt)(base, exchange=opt.exchange_config,
+                        group=dist.group.WORLD)
+    step = make_train_step(build_model(cfg), opt, sparse_embedding=True)
+    batch = batch_at(args.steps)
+    ex = ExchangeState([s.clone() if isinstance(s, torch.Tensor) else s
+                        for s in result["exchange_state"].bucket_states])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = step(result["params"], result["opt_state"], ex, batch)
+        torch.cuda.synchronize()
+    del out
+    return sum(e.device_time_total for e in prof.key_averages()) / 1e3
+
+
+def phase_zero1(train, D, Q, comm, ops) -> dict:
+    """ZeRO-1 on full-width transformer-big, world of 1 over NCCL, 8 x
+    256 tokens, 3 steps a run: the launcher's ``--zero1`` runs bitwise
+    against the replicated fused runs of the same flags (dense_reduce and
+    sparse_gather: parameters, losses, Adam moments through the bucket
+    layout), ``--zero1 --codec int8 --error-feedback`` and ``--zero1
+    --param-codec int8`` (their first step through the kernels bitwise
+    the same step through the plain versions), a checkpoint after step 2
+    resumed to step 3 bitwise the uninterrupted int8+ef run, and
+    ``adamw(state_dtype="bfloat16")`` through ``make_train_step``
+    (zero1 bitwise replicated).  Every run: launches and collective
+    calls from the plan, the Zero1State's bytes equal to
+    ``optimizer_state_bytes``."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.optim import zero1 as z1
+    quiet = lambda s: None
+    launches = {"densify": 0, "quantize": 0, "quantize_ef": 0,
+                "decode_sum": 0}
+    created = _world_of_one(train)
+    runs, out = {}, {}
+    ckdir = os.path.join(ROOT, "build", "zero1_checkpoints")
+    try:
+        for tag, accum, flags, same_as in ZERO1_RUNS:
+            argv = FULL_WIDTH + ["--grad-accum", accum, "--steps",
+                                 str(ZERO1_STEPS)] + flags
+            result, line = zero1_launcher_run(train, D, Q, comm, argv, tag,
+                                              launches)
+            if same_as is not None:
+                zero1_same_as_replicated(tag, result, runs[same_as],
+                                         exchange_plan(train, argv))
+                line["bitwise_vs"] = same_as
+            line["device_busy_ms"] = zero1_busy_ms(train, argv, result)
+            print(json.dumps(line))
+            out[tag] = line
+            if tag in ("replicated", "replicated/sparse_gather",
+                       "zero1/int8+ef"):
+                runs[tag] = result
+            del result
+        del runs["replicated"], runs["replicated/sparse_gather"]
+        torch.cuda.empty_cache()
+        # -- checkpoint after step 2, resumed to step 3 ---------------------
+        shutil.rmtree(ckdir, ignore_errors=True)
+        whole = runs.pop("zero1/int8+ef")
+        flags = ["--zero1", "--codec", "int8", "--error-feedback",
+                 "--grad-accum", "dense_reduce", "--checkpoint-dir", ckdir]
+        t0 = time.perf_counter()
+        _, line = zero1_launcher_run(
+            train, D, Q, comm, FULL_WIDTH + flags + [
+                "--steps", "2", "--checkpoint-every", "2"],
+            "zero1/int8+ef/checkpoint", launches, steps=2)
+        line["run_s"] = time.perf_counter() - t0
+        print(json.dumps(line))
+        ck_bytes = os.path.getsize(os.path.join(ckdir, "ckpt_00000002.npz"))
+        t0 = time.perf_counter()
+        resumed, line = zero1_launcher_run(
+            train, D, Q, comm, FULL_WIDTH + flags + ["--steps", "3",
+                                                     "--resume"],
+            "zero1/int8+ef/resume", launches, steps=1)
+        line["run_s"] = time.perf_counter() - t0
+        bad = differing(zero1_state(resumed), zero1_state(whole))
+        last = (resumed["history"][-1]["loss"], whole["history"][-1]["loss"])
+        if bad or last[0] != last[1]:
+            fail(f"zero1 resume: differs from the uninterrupted run in "
+                 f"tensors {bad[:10]} (last loss {last})")
+        line.update(bitwise_vs="zero1/int8+ef", checkpoint_bytes=ck_bytes)
+        print(json.dumps(line))
+        out["resume"] = line
+        del resumed, whole
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        # -- the first step through the kernels and the plain versions ------
+        for tag, flags in (("int8+ef", ["--codec", "int8",
+                                        "--error-feedback"]),
+                           ("param_int8", ["--param-codec", "int8"])):
+            out[f"first_step/{tag}"] = zero1_first_step(
+                train, FULL_WIDTH + ["--zero1", "--grad-accum",
+                                     "dense_reduce"] + flags, tag, ops)
+        # -- adamw(state_dtype="bfloat16") through make_train_step ----------
+        out["bf16_state"] = zero1_bf16_state(train, D, Q, comm, launches)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        if created:
+            dist.destroy_process_group()
+    out["launches"] = launches
+    return out
+
+
+def zero1_launcher_run(train, D, Q, comm, argv, tag, launches,
+                       steps=ZERO1_STEPS):
+    """One launcher run with the counts reset before and read after;
+    returns its result and its report line (step ms, training-state
+    bytes, peak memory, launches), the checks applied."""
+    from repro_torch.checkpoint.checkpoint import nbytes
+    from repro_torch.optim import zero1 as z1
+    plan = exchange_plan(train, argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero1_reset(D, Q, comm)
+    result = train.run(argv, log=lambda s: None)
+    got = zero1_counts(D, Q, comm)
+    want = zero1_want(plan, steps)
+    if got != want:
+        fail(f"zero1 {tag}: launches {got}, want {want} from the plan")
+    for k in launches:
+        launches[k] += got[k]
+    hist = result["history"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"zero1 {tag}: losses {losses}")
+    opt_state = result["opt_state"]
+    state_b = nbytes(opt_state)
+    want_b = z1.optimizer_state_bytes(plan, 1)
+    if state_b != want_b:
+        fail(f"zero1 {tag}: the optimizer state holds {state_b} B, "
+             f"optimizer_state_bytes says {want_b} B")
+    steady = [h["step_ms"] for h in hist[1:]] or [hist[0]["step_ms"]]
+    return result, {
+        "phase": "zero1", "run": tag, "codec": plan.config.codec,
+        "param_codec": plan.config.param_codec,
+        "zero1": plan.config.zero1, "steps": steps, "losses": losses,
+        "launches": got, "plan_calls_per_step": plan.hlo_collectives(1),
+        "optimizer_state_bytes": state_b,
+        "optimizer_state_bytes_replicated": z1.optimizer_state_bytes(
+            plan, 1, zero1=False),
+        "optimizer_state_bytes_zero1_p8": z1.optimizer_state_bytes(
+            plan, 8, zero1=True),
+        "training_state_bytes": nbytes(
+            (result["params"], opt_state, result["exchange_state"])),
+        "wire_bytes": {p: plan.wire_bytes(p) for p in (4, 8)},
+        "step_ms_median_after_first": statistics.median(steady),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        # what earlier runs' results kept allocated when this one began
+        "memory_allocated_before": held}
+
+
+def zero1_same_as_replicated(tag, result, rep, plan) -> None:
+    """Parameters and losses bitwise the replicated run's, and the
+    Zero1State's moments bitwise the replicated AdamState's laid out in
+    the plan's buckets."""
+    from repro_torch.optim import zero1 as z1
+    from repro_torch.tree import tree_flatten
+    a = tree_flatten(result["params"])[0]
+    b = tree_flatten(rep["params"])[0]
+    bad = differing(a, b)
+    la = [h["loss"] for h in result["history"]]
+    lb = [h["loss"] for h in rep["history"]]
+    if bad or la != lb:
+        fail(f"zero1 {tag}: params {bad[:10]} or losses {la} vs {lb} "
+             f"differ from the replicated run")
+    z, adam = result["opt_state"], rep["opt_state"]
+    for slot, tree in ((0, adam.mu), (1, adam.nu)):
+        want = z1.bucket_layout(plan, tree)
+        got = [s[slot].to(torch.float32) for s in z.opt_slots]
+        bad = differing(got, want)
+        if bad:
+            fail(f"zero1 {tag}: Adam slot {slot} differs from the "
+                 f"replicated moments in stages {bad[:10]}")
+    if int(z.step) != int(adam.step):
+        fail(f"zero1 {tag}: step {int(z.step)} vs {int(adam.step)}")
+
+
+def zero1_first_step(train, argv, tag, ops) -> dict:
+    """One zero1 step from the launcher's initial state through the int8
+    kernels and through their plain versions (the ops entry points
+    pointed at ``quantize_plain``, ``quantize_ef_plain`` and
+    ``decode_sum_plain`` for the second): every dense stage's gradient
+    shard, the new params, the Zero1State and the residuals bitwise."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import flatten_with_paths
+    from repro_torch.core.exchange import ExchangePlan
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.models import build_model
+    from repro_torch.training.gradients import grad_contributions
+    args, cfg, batch_at = zero1_setup(train, argv)
+    model = build_model(cfg)
+    opt = train.build_optimizer(args, cfg, dist.group.WORLD)
+    params = model.init(seed=args.seed, device=args.device)
+    g = grad_contributions(model, params, batch_at(0),
+                           sparse_embedding=True)[0]
+    finish = ExchangePlan.zero1_finish_grad
+    kernels = (ops.quantize_int8, ops.quantize_int8_ef, ops.int8_decode_sum)
+    plain = (Q.quantize_plain, Q.quantize_ef_plain, Q.decode_sum_plain)
+    outs = {}
+    for route, fns in (("kernel", kernels), ("plain", plain)):
+        shards = []
+
+        def recording(self, *a, **k):
+            shard = finish(self, *a, **k)
+            shards.append(shard.clone())
+            return shard
+        ExchangePlan.zero1_finish_grad = recording
+        ops.quantize_int8, ops.quantize_int8_ef, ops.int8_decode_sum = fns
+        try:
+            z = opt.init_zero1_state(g, params)
+            ex = opt.init_exchange_state(g)
+            step_out = opt.zero1_step(g, params, z, exchange_state=ex)
+            torch.cuda.synchronize()
+        finally:
+            ExchangePlan.zero1_finish_grad = finish
+            (ops.quantize_int8, ops.quantize_int8_ef,
+             ops.int8_decode_sum) = kernels
+        outs[route] = (shards, [t for _, t in flatten_with_paths(step_out)])
+        del step_out, z, ex
+    bad_shards = differing(outs["kernel"][0], outs["plain"][0])
+    bad_state = differing(outs["kernel"][1], outs["plain"][1])
+    if bad_shards or bad_state or not outs["kernel"][0]:
+        fail(f"zero1 first step {tag}: kernels vs plain differ in shards "
+             f"{bad_shards[:10]} and state tensors {bad_state[:10]}")
+    line = {"phase": "zero1_first_step", "run": tag,
+            "shards_bitwise": len(outs["kernel"][0]),
+            "state_tensors_bitwise": len(outs["kernel"][1]),
+            "shard_elements": sum(s.numel() for s in outs["kernel"][0])}
+    print(json.dumps(line))
+    return line
+
+
+def zero1_bf16_state(train, D, Q, comm, launches) -> dict:
+    """``adamw(noam, state_dtype="bfloat16")`` through
+    ``make_train_step``: 3 steps replicated and 3 with zero1 on the
+    launcher's batches; zero1 bitwise the replicated (params, losses,
+    bf16 moments through the bucket layout), each state's bytes
+    ``optimizer_state_bytes(plan, 1, "bfloat16")``, half the f32
+    runs'."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import nbytes
+    from repro_torch.core import DistributedOptimizer, ExchangeConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, noam_schedule
+    from repro_torch.optim import zero1 as z1
+    from repro_torch.training import make_train_step
+    from repro_torch.training.gradients import grad_contributions
+    argv = FULL_WIDTH + ["--grad-accum", "dense_reduce", "--steps",
+                         str(ZERO1_STEPS)]
+    args, cfg, batch_at = zero1_setup(train, argv)
+    model = build_model(cfg)
+    batches = [batch_at(s) for s in range(ZERO1_STEPS)]
+    base = adamw(noam_schedule(cfg.d_model, warmup_steps=args.warmup),
+                 state_dtype="bfloat16")
+    res, out = {}, {}
+    for zero1 in (False, True):
+        tag = "bf16_state/" + ("zero1" if zero1 else "replicated")
+        opt = DistributedOptimizer(base, exchange=ExchangeConfig(
+            sparse_as_dense=True, zero1=zero1, use_kernel=True),
+            group=dist.group.WORLD)
+        step = make_train_step(model, opt, sparse_embedding=True)
+        params = model.init(seed=args.seed, device=args.device)
+        g = grad_contributions(model, params, batches[0],
+                               sparse_embedding=True)[0]
+        plan = opt.plan(g)
+        state = (opt.init_zero1_state(g, params) if zero1
+                 else opt.init(params))
+        ex = opt.init_exchange_state(g)
+        del g
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        zero1_reset(D, Q, comm)
+        losses, times = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, ex, m = step(params, state, ex, b)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = zero1_counts(D, Q, comm)
+        want = zero1_want(plan, ZERO1_STEPS)
+        if got != want:
+            fail(f"zero1 {tag}: launches {got}, want {want}")
+        for k in launches:
+            launches[k] += got[k]
+        held = nbytes(state)
+        want_b = z1.optimizer_state_bytes(plan, 1, "bfloat16")
+        if held != want_b or held * 2 - 4 != z1.optimizer_state_bytes(
+                plan, 1, "float32"):
+            fail(f"zero1 {tag}: state holds {held} B, want {want_b} B")
+        if not all(map(math.isfinite, losses)):
+            fail(f"zero1 {tag}: losses {losses}")
+        result = {"params": params, "opt_state": state, "exchange_state": ex,
+                  "history": [{"loss": x} for x in losses]}
+        line = {"phase": "zero1", "run": tag, "losses": losses,
+                "launches": got, "optimizer_state_bytes": held,
+                "training_state_bytes": nbytes((params, state, ex)),
+                "step_ms_median_after_first": statistics.median(times[1:]),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "memory_allocated_before": before}
+        if zero1:
+            zero1_same_as_replicated(tag, result, res[False], plan)
+            line["bitwise_vs"] = "bf16_state/replicated"
+        line["device_busy_ms"] = zero1_busy_ms(
+            train, argv + (["--zero1"] if zero1 else []), result, base=base)
+        print(json.dumps(line))
+        out[tag] = line
+        res[zero1] = result
+        del params, state, ex, step
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_zero1(train) -> None:
+    """The reduced transformer-big in f32 trains 2 steps on the card and
+    on the CPU with ``--zero1 --codec int8 --error-feedback`` and
+    ``--zero1 --param-codec int8``: losses within rel 1e-4, as the other
+    small phases."""
+    base = ["--reduced", "--dist", "horovod", "--grad-accum",
+            "dense_reduce", "--batch-per-worker", "4", "--seq-len", "32",
+            "--steps", "2", "--log-every", "1", "--zero1"]
+    quiet = lambda s: None
+    for flags in (["--codec", "int8", "--error-feedback"],
+                  ["--param-codec", "int8"]):
+        card = train.run(base + flags + ["--device", "cuda"],
+                         log=quiet)["history"]
+        cpu = train.run(base + flags + ["--device", "cpu"],
+                        log=quiet)["history"]
+        lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
+        if len(lc) != 2 or not all(math.isclose(x, y, rel_tol=1e-4)
+                                   for x, y in zip(lc, lh)):
+            fail(f"small zero1 {flags}: card {lc} vs cpu {lh}")
+        print(json.dumps({"phase": "small_zero1", "flags": flags,
+                          "card_losses": lc, "cpu_losses": lh}))
 
 
 def phase_small_backends(train) -> None:
@@ -3021,6 +3483,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     backends = clock("backends", phase_backends, train, D, Q, comm)
     torch.cuda.empty_cache()
+    zero1 = clock("zero1", phase_zero1, train, D, Q, comm, ops)
+    torch.cuda.empty_cache()
     model = build_model(get_config("transformer-big"))
     params = model.init(seed=0, device="cuda")
     prefill = clock("prefill", phase_prefill, model, params, FA)
@@ -3039,6 +3503,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock("small", phase_small_reference, train)
     clock("small_backends", phase_small_backends, train)
+    clock("small_zero1", phase_small_zero1, train)
     clock("small_forward", phase_small_forward)
     clock("small_hybrid", phase_small_hybrid, K)
     print(json.dumps({"kernels": [{
@@ -3046,11 +3511,13 @@ def main() -> int:
         "source": "src/repro_torch/csrc/densify.cu",
         "replaces": "src/repro/kernels/densify.py:40",
         "launches": path["densify_launches"] + codec["densify_launches"]
-        + overlap["launches"]["densify"] + backends["launches"]["densify"],
+        + overlap["launches"]["densify"] + backends["launches"]["densify"]
+        + zero1["launches"]["densify"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
-                              "backends": backends["launches"]["densify"]},
+                              "backends": backends["launches"]["densify"],
+                              "zero1": zero1["launches"]["densify"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -3064,23 +3531,29 @@ def main() -> int:
         "entry_points": ["repro_quantize_int8_ef", "repro_quantize_int8",
                          "repro_int8_decode_sum"],
         "launches": codec["quantize_launches"]
-        + overlap["launches"]["quantize"] + backends["launches"]["quantize"],
+        + overlap["launches"]["quantize"] + backends["launches"]["quantize"]
+        + zero1["launches"]["quantize"],
         "launches_by_entry": {
             "repro_quantize_int8_ef": codec["quantize_ef_launches"]
             + overlap["launches"]["quantize_ef"]
-            + backends["launches"]["quantize_ef"],
+            + backends["launches"]["quantize_ef"]
+            + zero1["launches"]["quantize_ef"],
             "repro_quantize_int8": codec["quantize_launches"]
             - codec["quantize_ef_launches"]
             + overlap["launches"]["quantize"]
             - overlap["launches"]["quantize_ef"]
             + backends["launches"]["quantize"]
-            - backends["launches"]["quantize_ef"],
+            - backends["launches"]["quantize_ef"]
+            + zero1["launches"]["quantize"]
+            - zero1["launches"]["quantize_ef"],
             "repro_int8_decode_sum": codec["decode_sum_launches"]
             + overlap["launches"]["decode_sum"]
-            + backends["launches"]["decode_sum"]},
+            + backends["launches"]["decode_sum"]
+            + zero1["launches"]["decode_sum"]},
         "launches_by_phase": {"codec": codec["quantize_launches"],
                               "overlap": overlap["launches"]["quantize"],
-                              "backends": backends["launches"]["quantize"]},
+                              "backends": backends["launches"]["quantize"],
+                              "zero1": zero1["launches"]["quantize"]},
         "requantize": {
             "per_step_ms": backends["requantize"]["per_step_ms"],
             "per_step_bound_ms": backends["requantize"]["per_step_bound_ms"],
@@ -3097,7 +3570,8 @@ def main() -> int:
             "library_ms")},
         "decode_sum": {"launches": codec["decode_sum_launches"]
                        + overlap["launches"]["decode_sum"]
-                       + backends["launches"]["decode_sum"],
+                       + backends["launches"]["decode_sum"]
+                       + zero1["launches"]["decode_sum"],
                        **wire["decode_sum"][1]},
         "f32_leaf": {
             "per_step_ms": wire["per_step"]["encode_f32_ms"],

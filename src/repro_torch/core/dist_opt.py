@@ -17,7 +17,9 @@ empty entries for a stateless codec) is threaded through
 ``exchange(grads, state) -> (tree, state)``; ``init_exchange_state``
 builds the first.  ``exchange`` honours ``ExchangeConfig.overlap``;
 ``exchange_scheduled`` and ``exchange_fused`` take one path whatever it
-says.
+says.  Under ``ExchangeConfig(zero1=True)`` the exchange and the update
+are one step, ``zero1_step``, over this rank's local ``Zero1State``
+(``init_zero1_state``).
 """
 from __future__ import annotations
 
@@ -86,3 +88,38 @@ class DistributedOptimizer:
         return self.plan(grads).execute_fused(grads, self.group,
                                               average=self.average,
                                               state=state)
+
+    # -- ZeRO-1: sharded optimizer state (exchange fused with update) --------
+    @property
+    def zero1(self) -> bool:
+        """True when the exchange config shards optimizer state: the step
+        must then go through ``zero1_step``, not exchange + update."""
+        return self._exchange_config.zero1
+
+    def init_zero1_state(self, grads, params):
+        """This rank's local Zero1State (flat EMA shards in bucket slot
+        order, and the f32 master shards under a lossy ``param_codec``)
+        for this gradient-tree structure, built directly for the rank
+        and the worker count of ``group`` (the global view at P = 1 with
+        no group), on the device of the params.  ``grads`` may hold
+        ``meta`` tensors."""
+        # lazy import: optim.zero1 consumes core.exchange, not the other
+        # way round at import time
+        from repro_torch.optim import zero1 as zero1_lib
+        groups = comm.groups(self.group)
+        plan = self.plan(grads)
+        return zero1_lib.init_local_state(
+            plan, self.base, params, rank=plan.worker_index(groups),
+            n_workers=comm.axis_size(groups))
+
+    def zero1_step(self, grads, params, z_state,
+                   exchange_state: Optional[ExchangeState] = None):
+        """One fused ZeRO-1 step: the bucket-scheduled grad reduce-scatter,
+        the flat-shard optimizer update of this rank's 1/P slice, and the
+        updated-param allgather back through the same schedule.  Returns
+        ``(new_params, new_z_state, new_exchange_state)``."""
+        from repro_torch.optim import zero1 as zero1_lib
+        return zero1_lib.zero1_step(self.plan(grads), self.base, grads,
+                                    params, z_state, self.group,
+                                    average=self.average,
+                                    ex_state=exchange_state)

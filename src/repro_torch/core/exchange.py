@@ -39,6 +39,13 @@ own earlier hops inside ``launch_stage`` (on NCCL a stream wait) and
 leaves only its last hop in flight.  Every codec threads an
 ``ExchangeState`` through the exchange (empty entries for stateless
 codecs).
+Under ``zero1=True`` the exchange is fused with the optimizer update
+and driven by ``optim.zero1.zero1_step``: ``zero1_launch_grad`` /
+``zero1_finish_grad`` reduce each dense bucket to this rank's flat f32
+shard (a reduce-scatter, or the quantised allgather and decode-sum then
+a slice), and ``zero1_allgather_params`` brings the updated param shards
+back through ``param_codec``; the grads-only ``execute`` paths refuse
+such a plan.
 The plan is the single source of the byte and launch accounting
 (``wire_bytes`` / ``hop_wire_bytes`` / ``buffer_bytes`` /
 ``n_collectives`` / ``hlo_collectives`` / ``state_bytes``), which equals
@@ -52,6 +59,7 @@ import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import accumulation, backend as backend_lib, codecs, \
     comm, fusion
@@ -87,6 +95,15 @@ class ExchangeConfig:
     #                                          "backward": buckets snap to
     #                                          top-level blocks and launch
     #                                          from inside the backward pass
+    zero1: bool = False                      # ZeRO-1: reduce-scatter grads,
+    #                                          update this worker's 1/P flat
+    #                                          shard, allgather the UPDATED
+    #                                          PARAMS back through the same
+    #                                          schedule (optim/zero1.py)
+    param_codec: str = "identity"            # WireCodec of the zero1 param
+    #                                          allgather (stateless only;
+    #                                          "identity" keeps zero1 bitwise
+    #                                          the replicated path)
     # -- deprecated spellings, folded into codec/backend ---------------------
     wire_dtype: Optional[str] = None         # -> codec=<cast codec>
     hierarchical: bool = False               # -> backend="hierarchical"
@@ -145,10 +162,44 @@ class ExchangeConfig:
             if self.backend == "hierarchical":
                 raise ValueError("hierarchical backend has no RS+AG path; "
                                  "use backend='flat' or 'ringsim'")
+        # resolve + normalise the zero1 param-allgather codec
+        object.__setattr__(self, "param_codec",
+                           codecs.get_codec(self.param_codec).name)
+        if self.zero1:
+            if self.reduce_scatter:
+                raise ValueError(
+                    "zero1 subsumes reduce_scatter: the grad "
+                    "reduce-scatter and the updated-param allgather ARE "
+                    "the RS+AG decomposition with the optimizer update "
+                    "in between — drop reduce_scatter=True")
+            if self.backend == "hierarchical":
+                raise ValueError("hierarchical backend has no "
+                                 "reduce-scatter path; zero1 needs "
+                                 "backend='flat' or 'ringsim'")
+            if self.overlap == "backward":
+                raise ValueError(
+                    "zero1 does not compose with overlap='backward': the "
+                    "updated-param allgather needs the sharded optimizer "
+                    "update, which runs AFTER the backward pass — use "
+                    "overlap='staged' (grad reduce-scatters still launch "
+                    "before any param allgather)")
+            if self.param_codec_obj.stateful:
+                raise ValueError(
+                    f"param_codec {self.param_codec!r} is stateful; the "
+                    f"param allgather broadcasts state (the updated "
+                    f"params), so error-feedback residuals would "
+                    f"double-apply — use a stateless codec")
+        elif self.param_codec != "identity":
+            raise ValueError("param_codec configures the zero1 param "
+                             "allgather; set zero1=True")
 
     @property
     def codec_obj(self) -> codecs.WireCodec:
         return codecs.get_codec(self.codec)
+
+    @property
+    def param_codec_obj(self) -> codecs.WireCodec:
+        return codecs.get_codec(self.param_codec)
 
     @property
     def backend_obj(self) -> backend_lib.CollectiveBackend:
@@ -160,7 +211,9 @@ class ExchangeConfig:
 
     @property
     def dense_collective(self) -> str:
-        return REDUCE_SCATTER if self.reduce_scatter else ALLREDUCE
+        if self.zero1 or self.reduce_scatter:
+            return REDUCE_SCATTER
+        return ALLREDUCE
 
     @property
     def overlap_backward(self) -> bool:
@@ -370,8 +423,43 @@ class ExchangePlan:
         per-stage counts."""
         return sum(self.stage_collectives(s) for s in self.schedule.stages)
 
+    # -- ZeRO-1 accounting --------------------------------------------------
+    @property
+    def _zero1_param_tensors(self) -> int:
+        """Tensors the zero1 param allgather moves per dense stage: the
+        encoded shard, plus the per-worker scales of a sided codec."""
+        return 1 + (0 if self.config.param_codec_obj.linear else 1)
+
+    def zero1_shard_elems(self, stage: BucketStage,
+                          n_workers: Levels) -> int:
+        """Per-worker flat shard length of one dense stage's bucket under
+        ZeRO-1 (the bucket padded to a multiple of P): the slice of
+        (params, EMA buffers) this worker owns and updates."""
+        p = math.prod(self._levels(n_workers))
+        b = self.dense_buckets[stage.bucket_id]
+        return codecs.padded_elems(b.n_elems, p) // p
+
+    def _zero1_param_hop_wire_bytes(self, stage: BucketStage,
+                                    n_workers: Levels) -> Tuple[int, ...]:
+        """Per-hop wire bytes of one dense stage's updated-param
+        allgather: every worker receives the other P-1 encoded shards
+        (and their scales)."""
+        levels = self._levels(n_workers)
+        if math.prod(levels) <= 1:
+            return tuple(0 for _ in levels)
+        payload = self.config.param_codec_obj.wire_bytes(
+            self.zero1_shard_elems(stage, n_workers), "float32")
+        return self.config.backend_obj.gather_hop_wire_bytes(payload,
+                                                             levels)
+
     def stage_collectives(self, stage: BucketStage) -> int:
         """Logical collectives one stage launches (P-independent)."""
+        if stage.kind == "dense" and self.config.zero1:
+            # the grad half (a reduce-scatter for linear wires, values
+            # and scales allgathers for quantised ones) + the updated-
+            # param allgather half
+            grad = 1 if self.config.codec_obj.linear else 2
+            return grad + self._zero1_param_tensors
         if not self.config.codec_obj.linear:
             # non-linear codecs never reduce in flight: every bucket is a
             # values and a scales allgather (the gather stage's indices
@@ -400,9 +488,23 @@ class ExchangePlan:
         be = self.config.backend_obj
         if stage.kind == "dense":
             b = self.dense_buckets[stage.bucket_id]
+            codec = self.config.codec_obj
+            if self.config.zero1:
+                if codec.linear:
+                    p = math.prod(levels)
+                    grad = (int(comm.reduce_scatter_wire_bytes(
+                        b.n_elems, b.wire_dtype, p)) if p > 1 else 0,)
+                else:
+                    # quantised grads move as the replicated path's
+                    # (values, scales) allgather: the shard is sliced
+                    # after the decode-sum
+                    grad = be.dense_hop_wire_bytes(
+                        b.collective, b.n_elems, b.wire_dtype, codec,
+                        levels)
+                param = self._zero1_param_hop_wire_bytes(stage, n_workers)
+                return tuple(g + q for g, q in zip(grad, param))
             return be.dense_hop_wire_bytes(b.collective, b.n_elems,
-                                           b.wire_dtype,
-                                           self.config.codec_obj, levels)
+                                           b.wire_dtype, codec, levels)
         return be.gather_hop_wire_bytes(
             self._gather_payload_bytes(self.leaf_specs[stage.bucket_id]),
             levels)
@@ -418,10 +520,15 @@ class ExchangePlan:
         reference's HLO op count of the same stage)."""
         levels = self._levels(n_workers)
         be = self.config.backend_obj
+        codec = self.config.codec_obj
         if stage.kind == "dense":
             b = self.dense_buckets[stage.bucket_id]
-            return be.hlo_ops_dense(b.collective, self.config.codec_obj,
-                                    levels)
+            if self.config.zero1:
+                grad = (be.hlo_ops_reduce_scatter(levels) if codec.linear
+                        else be.hlo_ops_dense(b.collective, codec, levels))
+                return grad + be.hlo_ops_gather(self._zero1_param_tensors,
+                                                levels)
+            return be.hlo_ops_dense(b.collective, codec, levels)
         return be.hlo_ops_gather(self._gather_tensors(), levels)
 
     def stage_hop_ops(self, stage: BucketStage, n_workers: Levels
@@ -430,10 +537,17 @@ class ExchangePlan:
         ``stage_hop_wire_bytes``; sums to ``stage_hlo_collectives``."""
         levels = self._levels(n_workers)
         be = self.config.backend_obj
+        codec = self.config.codec_obj
         if stage.kind == "dense":
             b = self.dense_buckets[stage.bucket_id]
-            return be.dense_hop_ops(b.collective, self.config.codec_obj,
-                                    levels)
+            if self.config.zero1:
+                grad = ((be.hlo_ops_reduce_scatter(levels),)
+                        if codec.linear
+                        else be.dense_hop_ops(b.collective, codec, levels))
+                param = be.gather_hop_ops(self._zero1_param_tensors,
+                                          levels)
+                return tuple(g + q for g, q in zip(grad, param))
+            return be.dense_hop_ops(b.collective, codec, levels)
         return be.gather_hop_ops(self._gather_tensors(), levels)
 
     def _levels(self, n_workers: Levels) -> Tuple[int, ...]:
@@ -666,11 +780,7 @@ class ExchangePlan:
             if not groups:
                 return (wire,), bstate
             if bucket.collective == REDUCE_SCATTER:
-                pad = -wire.shape[0] % p
-                if pad:
-                    wire = torch.cat([comm._bits(wire),
-                                      comm._bits(wire).new_zeros(pad)]
-                                     ).view(wire.dtype)
+                wire = _pad(wire, codecs.padded_elems(wire.shape[0], p))
                 # the allgather takes the reduce-scatter's shard: wait
                 # for it here (on NCCL a stream wait)
                 shard = comm.wait(be.reduce_scatter(wire, groups))
@@ -822,6 +932,7 @@ class ExchangePlan:
         any overlap mode takes ``execute_scheduled``, none
         ``execute_fused``.  Both run the same per-stage ops, so their
         results are bitwise equal."""
+        self._check_not_zero1()
         if self.config.overlap:
             return self.execute_scheduled(grads, group, average=average,
                                           state=state)
@@ -838,6 +949,7 @@ class ExchangePlan:
         runs).  Returns ``(tree, new ExchangeState)``; ``state`` may be
         left out for a stateless codec.  Error-feedback residuals are
         updated in place."""
+        self._check_not_zero1()
         state, raw, p, inv_scale = self._exchange_setup(grads, group,
                                                         average, state)
         acc: List[Any] = [None] * self.n_leaves
@@ -859,6 +971,7 @@ class ExchangePlan:
         stages' collectives are in flight; the unpacks run once every
         collective has been issued.  Same arguments and result as
         ``execute_fused``."""
+        self._check_not_zero1()
         state, raw, p, inv_scale = self._exchange_setup(grads, group,
                                                         average, state)
         acc: List[Any] = [None] * self.n_leaves
@@ -873,6 +986,119 @@ class ExchangePlan:
         for stage, fl in zip(self.schedule.stages, inflight):
             self.finish_stage(stage, fl, out, inv_scale, p)
         return tree_unflatten(self.treedef, out), ExchangeState(new_states)
+
+
+    # -- ZeRO-1 execution (the exchange fused with the update) ---------------
+    def _check_not_zero1(self) -> None:
+        if self.config.zero1:
+            raise ValueError(
+                "zero1 plans fuse the exchange with the optimizer "
+                "update (grad reduce-scatter -> shard update -> param "
+                "allgather); there is no grads-only execute path — "
+                "drive the plan through DistributedOptimizer.zero1_step")
+
+    @staticmethod
+    def worker_index(groups: Tuple) -> int:
+        """This process's rank in its (one) process group: the dim-0
+        chunk of a tiled reduce-scatter or allgather it owns (0 on the
+        local path)."""
+        return dist.get_rank(groups[0]) if groups else 0
+
+    def zero1_launch_grad(self, stage: BucketStage, leaves: List[Any],
+                          group: comm.Group, bstate) -> Tuple[Tuple, Any]:
+        """The first half of the reference's ``zero1_grad_shard``, split so
+        that every stage's collectives can be in flight before the first
+        is finished.  Pack one dense stage, encode it and issue its grad
+        collectives:
+        a linear wire is padded to P x ``zero1_shard_elems`` and
+        reduce-scattered (no grad allgather ever happens; the updated
+        params ride back instead); a quantised wire is allgathered with
+        its scales, as the replicated path does.  Returns ``(inflight,
+        new bucket state)`` for ``zero1_finish_grad``."""
+        groups = self._check_groups(group)
+        p = comm.axis_size(groups)
+        bucket = self.dense_buckets[stage.bucket_id]
+        codec = self.config.codec_obj
+        wire, scale, bstate = codec.encode_stateful(
+            self.pack_bucket(bucket, leaves), bstate)
+        if codec.linear:
+            if scale is not None:
+                raise ValueError(
+                    f"linear codec {codec.name!r} returned side scales; "
+                    f"scales cannot be reduce-scattered")
+            wire = _pad(wire, self.zero1_shard_elems(stage, p) * p)
+            if not groups:
+                return (wire,), bstate
+            return (self.config.backend_obj.reduce_scatter(wire, groups),), \
+                bstate
+        if not groups:
+            return (wire, scale, 1), bstate
+        be = self.config.backend_obj
+        return (be.all_gather(wire, groups), be.all_gather(scale, groups),
+                p), bstate
+
+    def zero1_finish_grad(self, stage: BucketStage, inflight: Tuple,
+                          group: comm.Group,
+                          inv_scale: Optional[float]) -> torch.Tensor:
+        """This worker's flat f32 gradient shard of one dense stage
+        (``zero1_shard_elems`` long, zero-padded tail): the reduce-
+        scattered wire upcast, or, for a quantised wire, the decode-sum
+        of the full bucket padded and sliced to this worker's chunk (so
+        gradients and error-feedback residuals are the replicated
+        path's), then averaged (f32 first, then ``* inv_scale``)."""
+        groups = self._check_groups(group)
+        p = comm.axis_size(groups)
+        if len(inflight) == 1:
+            shard = comm.wait(inflight[0]).to(torch.float32)
+        else:
+            g_wire, g_scale, n_chunks = inflight
+            red = self.config.codec_obj.reduce_hop(
+                comm.wait(g_wire), comm.wait(g_scale), n_chunks,
+                torch.float32)
+            n = self.zero1_shard_elems(stage, p)
+            red = _pad(red, n * p)
+            shard = red if red.shape[0] == n else red.narrow(
+                0, self.worker_index(groups) * n, n).clone()
+        if inv_scale is not None:
+            shard = shard * inv_scale
+        return shard
+
+    def zero1_allgather_params(self, stage: BucketStage,
+                               shard: torch.Tensor, out: List[Any],
+                               group: comm.Group) -> None:
+        """Broadcast one dense stage's UPDATED param shard to every worker
+        through the (stateless) param codec and unpack the reassembled
+        bucket into ``out``'s param leaves, each cast to its dtype.  A
+        quantised param wire decodes each worker's chunk against that
+        worker's own scale, as the gather path does; it never sums."""
+        groups = self._check_groups(group)
+        p = comm.axis_size(groups)
+        bucket = self.dense_buckets[stage.bucket_id]
+        pc = self.config.param_codec_obj
+        be = self.config.backend_obj
+        wire, scale = pc.encode(shard.to(torch.float32))
+        if not groups:
+            buf = pc.decode(wire, scale, torch.float32)
+        elif pc.linear:
+            buf = pc.decode(comm.wait(be.all_gather(wire, groups)), None,
+                            torch.float32)
+        else:
+            g_wire = comm.wait(be.all_gather(wire, groups))
+            g_scale = comm.wait(be.all_gather(scale, groups))
+            per = g_wire.to(torch.float32).reshape(p, shard.shape[0])
+            per = per * g_scale.to(torch.float32).reshape(p, 1)
+            buf = per.reshape(-1)
+        self.unpack_bucket(bucket, buf[:bucket.n_elems], out, None)
+
+
+def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (1-D) zero-padded to ``n`` elements; float8 buffers are
+    padded through their bits."""
+    pad = n - x.shape[0]
+    if not pad:
+        return x
+    bits = comm._bits(x)
+    return torch.cat([bits, bits.new_zeros(pad)]).view(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,17 @@ its cross-pod and its within-pod group, ranks pod-major), or the literal
 send/recv ring.  ``--reduce-scatter`` exchanges dense buckets as
 reduce-scatter + allgather.  ``--overlap staged`` launches every
 bucket's collective before any unpacks; ``--overlap backward`` launches
-each block's buckets from inside the backward pass (wait-free backprop).  The densify and quantize kernels are always
-on the exchange path (``ExchangeConfig(use_kernel=True)``).  Runs on the
-card unless ``--device cpu`` is given.
+each block's buckets from inside the backward pass (wait-free backprop).
+``--zero1`` shards the AdamW state (ZeRO-1): each dense bucket's
+gradient is reduce-scattered, each rank updates its 1/P flat shard and
+the updated params are allgathered through ``--param-codec`` (a
+stateless codec; ``identity`` keeps the step bitwise the replicated
+one).  ``--checkpoint-dir D --checkpoint-every N`` saves the training
+state every N steps in the reference's file format; ``--resume``
+continues from the latest checkpoint in D.  The densify and quantize
+kernels are always on the exchange path
+(``ExchangeConfig(use_kernel=True)``).  Runs on the card unless
+``--device cpu`` is given.
 
 Example (4 cards):
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
@@ -41,6 +49,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import ShardedCheckpoint
 from repro_torch.configs import get_config
 from repro_torch.core import (DistributedOptimizer, ExchangeConfig,
                               available_backends, available_codecs)
@@ -92,11 +101,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "buckets block-aligned and each block's "
                          "collectives launched from inside the backward "
                          "pass")
+    ap.add_argument("--zero1", action="store_true",
+                    help="ZeRO-1: reduce-scatter each dense bucket's "
+                         "gradient, run the optimizer on this worker's "
+                         "1/P flat shard of the EMA state (and the f32 "
+                         "master params under a lossy --param-codec), "
+                         "and allgather the UPDATED params back through "
+                         "the same bucket schedule")
+    ap.add_argument("--param-codec", default="identity",
+                    help="WireCodec of the zero1 updated-param allgather "
+                         "(stateless codecs only; the default identity "
+                         "keeps the step bitwise the replicated one)")
     ap.add_argument("--batch-per-worker", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--warmup", type=int, default=400)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--task", default="lm", choices=["lm", "translation"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -152,7 +175,8 @@ def build_optimizer(args, cfg, group) -> DistributedOptimizer:
         reduce_scatter=args.reduce_scatter, wire_dtype=args.wire_dtype,
         codec=args.codec, backend=args.backend,
         error_feedback=args.error_feedback,
-        overlap=args.overlap or False, use_kernel=True)
+        overlap=args.overlap or False, zero1=args.zero1,
+        param_codec=args.param_codec, use_kernel=True)
     return DistributedOptimizer(base, exchange=exchange, group=group)
 
 
@@ -188,7 +212,8 @@ def meta_worker_grads(args, model, pipe, sparse_embedding: bool):
 def run(argv=None, log: Optional[Callable[[str], None]] = None
         ) -> Dict[str, Any]:
     """Train as the command line says; returns the Trainer's result
-    (``params``, ``opt_state``, ``history``)."""
+    (``params``, ``opt_state``, ``exchange_state``, ``history``).  Under
+    ``--zero1`` ``opt_state`` is this rank's ``Zero1State``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -220,13 +245,21 @@ def run(argv=None, log: Optional[Callable[[str], None]] = None
         pipe = make_pipeline(cfg, batch_per_host=args.batch_per_worker * world,
                              seq_len=args.seq_len, seed=args.seed,
                              task=args.task)
-        ex_state = opt.init_exchange_state(
-            meta_worker_grads(args, model, pipe, sparse_embedding),
-            device=device)
+        meta = meta_worker_grads(args, model, pipe, sparse_embedding)
+        ex_state = opt.init_exchange_state(meta, device=device)
+        # under zero1 the optimizer state is this rank's slice of the
+        # Zero1State, laid out along the plan's bucket partition
+        opt_state = (opt.init_zero1_state(meta, params) if opt.zero1
+                     else opt.init(params))
         trainer = Trainer(model, step, pipe, TrainerConfig(
-            total_steps=args.steps, log_every=args.log_every),
-            device=device, rank=rank, world=world)
-        result = trainer.run(params, opt.init(params), ex_state, log=log)
+            total_steps=args.steps, log_every=args.log_every,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_dir=args.checkpoint_dir, resume=args.resume),
+            device=device, rank=rank, world=world,
+            checkpoint=ShardedCheckpoint(
+                opt.plan(meta),
+                dist.group.WORLD if args.dist == "horovod" else None))
+        result = trainer.run(params, opt_state, ex_state, log=log)
     finally:
         if created:
             dist.destroy_process_group()

@@ -1,9 +1,10 @@
 """Workers for the port's multi-process tests (gloo on the CPU).
 
 Imported by the spawned processes of tests/test_torch_exchange.py
-(``run``), tests/test_torch_overlap.py (``run_overlap``) and
-tests/test_torch_backend_world.py (``run_backends``); it imports torch
-and the port only.
+(``run``), tests/test_torch_overlap.py (``run_overlap``),
+tests/test_torch_backend_world.py (``run_backends``) and
+tests/test_torch_zero1_world.py (``run_zero1``); it imports torch and
+the port only.
 """
 import numpy as np
 import torch
@@ -301,3 +302,128 @@ def _backend_steps(rank, world, groups_for, results) -> None:
                     + tree_flatten(opt_state.nu)[0]
                     + [r for r in ex.bucket_states
                        if isinstance(r, torch.Tensor)])
+
+
+#: the zero1 world's exchanges: (backend, ExchangeConfig keywords), each
+#: run ``ZERO1_STEPS`` steps with zero1 and without (replicated)
+ZERO1_CONFIGS = {
+    "identity": ("flat", dict()),
+    "bf16": ("flat", dict(codec="bf16")),
+    "int8": ("flat", dict(codec="int8")),
+    "int8+ef": ("flat", dict(codec="int8+ef")),
+    "ringsim/identity": ("ringsim", dict()),
+    "ringsim/int8+ef": ("ringsim", dict(codec="int8+ef")),
+}
+#: the configs whose state after one step is held against the
+#: reference's 4-device shard_map run
+ZERO1_REFERENCE = {"identity": dict(),
+                   "int8+ef/param_int8": dict(codec="int8+ef",
+                                              param_codec="int8")}
+ZERO1_STEPS = 3
+
+
+def zero1_inputs(path: str):
+    """The zero1 world's numpy inputs (params and every worker's fixed
+    gradients), written by the test for both packages."""
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
+def run_zero1(rank: int, world: int, port: int, out_dir: str) -> None:
+    """ZeRO-1 over a gloo world: for each ``ZERO1_CONFIGS`` entry,
+    ``ZERO1_STEPS`` zero1 steps and as many replicated exchange + update
+    steps on the same fixed per-rank gradients (the local state's bytes,
+    the comm layer's calls a step and the plan's count recorded); the
+    local state after one step of each ``ZERO1_REFERENCE`` config; and a
+    checkpoint resume of int8+ef after step 2 against 4 uninterrupted
+    steps, through ``ShardedCheckpoint``."""
+    from repro_torch.checkpoint import ShardedCheckpoint
+    from repro_torch.checkpoint.checkpoint import nbytes
+    from repro_torch.core import comm
+    from repro_torch.optim import apply_updates
+    from repro_torch.optim import zero1 as z1
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        data = zero1_inputs(f"{out_dir}/inputs.npz")
+        group = dist.group.WORLD
+
+        def fresh_params():
+            return {"a": torch.from_numpy(data["a"].copy()),
+                    "b": torch.from_numpy(data["b"].copy())}
+
+        g = {"a": torch.from_numpy(data["ga"][rank].copy()),
+             "b": torch.from_numpy(data["gb"][rank].copy())}
+        base = adamw(lr=1e-2, weight_decay=0.01)
+
+        def zero1_opt(be, kw):
+            return DistributedOptimizer(base, exchange=ExchangeConfig(
+                zero1=True, sparse_as_dense=True, backend=be,
+                use_kernel=True, **kw), group=group)
+
+        results = {}
+        for name, (be, kw) in ZERO1_CONFIGS.items():
+            opt = zero1_opt(be, kw)
+            plan = opt.plan(g)
+            params, z = fresh_params(), opt.init_zero1_state(g, fresh_params())
+            ex = opt.init_exchange_state(g)
+            results[f"{name}/nbytes"] = nbytes(z)
+            results[f"{name}/expected_nbytes"] = z1.optimizer_state_bytes(
+                plan, world)
+            calls = []
+            for _ in range(ZERO1_STEPS):
+                comm.reset_calls()
+                params, z, ex = opt.zero1_step(g, params, z,
+                                               exchange_state=ex)
+                calls.append(sum(comm.calls().values()))
+            results[f"{name}/calls"] = calls
+            results[f"{name}/plan_calls"] = plan.hlo_collectives(world)
+            results[f"{name}/zero1"] = tree_flatten(params)[0]
+            results[f"{name}/zero1_slots"] = [list(s) for s in z.opt_slots]
+            ropt = DistributedOptimizer(base, exchange=ExchangeConfig(
+                sparse_as_dense=True, backend=be, use_kernel=True, **kw),
+                group=group)
+            params, state = fresh_params(), base.init(fresh_params())
+            ex = ropt.init_exchange_state(g)
+            for _ in range(ZERO1_STEPS):
+                dense, ex = ropt.exchange(g, state=ex)
+                upd, state = base.update(dense, state, params)
+                params = apply_updates(params, upd)
+            results[f"{name}/replicated"] = tree_flatten(params)[0]
+            results[f"{name}/replicated_mu"] = [
+                c.narrow(0, rank * s[0].shape[0], s[0].shape[0])
+                for c, s in zip(z1.bucket_layout(plan, state.mu, world),
+                                z.opt_slots)]
+        for name, kw in ZERO1_REFERENCE.items():
+            opt = zero1_opt("flat", kw)
+            params, z = fresh_params(), opt.init_zero1_state(g, fresh_params())
+            ex = opt.init_exchange_state(g)
+            params, z, ex = opt.zero1_step(g, params, z, exchange_state=ex)
+            results[f"ref/{name}"] = (params, z, ex)
+            ShardedCheckpoint(opt.plan(g), group).save(
+                f"{out_dir}/global_{name}", 1, (params, z, ex))
+
+        # resume: 2 steps, save, restore into a fresh template, 2 more
+        opt = zero1_opt("flat", dict(codec="int8+ef"))
+        ckpt = ShardedCheckpoint(opt.plan(g), group)
+
+        def start():
+            return (fresh_params(), opt.init_zero1_state(g, fresh_params()),
+                    opt.init_exchange_state(g))
+
+        def steps(state, n):
+            for _ in range(n):
+                state = opt.zero1_step(g, *state[:2],
+                                       exchange_state=state[2])
+            return state
+
+        whole = steps(start(), 4)
+        ckpt.save(f"{out_dir}/resume", 2, steps(start(), 2))
+        resumed, at = ckpt.restore(f"{out_dir}/resume", start())
+        results["resume/step"] = at
+        results["resume/whole"] = whole
+        results["resume/resumed"] = steps(resumed, 2)
+        torch.save(results, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
