@@ -18,6 +18,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
                time the card could take; densify also on the loss-scaled
                step's f32 values (four 512-row slices concatenated), held
                bitwise against the in-order plain version and timed;
+               and at the dense, vlm and seamless configs' vocabularies,
+               whose per-id counts spill from shared memory to the
+               workspace (vocab > 51,199): each config's 8 x 256 pipeline
+               tokens at (vocab, d_model), llama3.2-1b's also in f32, and
+               vocab 51,199 against 51,200, each bitwise equal to the
+               plain version and across two launches; the bf16 shapes of
+               llama3.2-1b (128256 x 2048) and seamless-m4t-large-v2
+               (256206 x 1024) timed with each kernel's own device time;
      int8_wire_kernel — the int8 wire's fused kernels: the error-feedback
                encode (bf16 leaf and f32 residual in, q, scale and the
                residual updated in place) bitwise against
@@ -47,6 +55,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                ``scaled_dot_product_attention`` as the library yardstick;
                and zamba2-7b's head dim 112: causal and window-8192
                (1 x 32768 x 32 x 112, bf16) and small f32 and bf16 cases;
+               chatglm3-6b's head dim 128 with 2 kv heads (causal 1 x
+               32768 x 32 x 128, GQA 16) and internvl2-1b's GQA 7 (causal
+               1 x 33024 x 14 x 64, 256 patches + 32768 tokens), timed
+               beside SDPA on kv expanded to the query heads;
                every case names the variant that ran, the prefill kernel
                ("sm90") must take the path's bf16 shapes and its own edge
                cases (Sq not a multiple of 128, kv_len < Sk, GQA 4, head
@@ -64,7 +76,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                three passes' device times under ``torch.profiler``, and
                the bound both ways (bytes, and f32 operations);
   4. path    — the launcher (``repro_torch.launch.train.run``) trains
-               full-width transformer-big in bf16: 4 steps of
+               full-width transformer-big in bf16: 3 steps of
                ``--dist horovod --grad-accum dense_reduce`` and 1 step of
                ``--grad-accum sparse_gather`` on a world of 1 over NCCL,
                with the kernels' launch counters reset just before and
@@ -143,7 +155,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                ``forward(attn_impl="kernel")`` and ``head`` on the last
                position, 12 kernel launches a forward, all 12 on the
                prefill kernel (counts reset just before, read just after);
-               logits held against the plain chunked path;
+               logits held against the plain chunked path at
+               ``PATH_TOL``; the top device kernels of one profiled run;
   7. translate — 8 requests: ``Model.prefill`` over a 16-token prefix and
                32 greedy ``decode_step``s cross-attending 256 f32 encoder
                states through the kernel, 6 launches a step; every step's
@@ -157,13 +170,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
                sequence, 81 SSD and 13 flash attention launches a forward
                (all 81 on the "sm90" SSD kernel, all 13 on the prefill
                attention kernel);
-               8 requests of a 16-token prefix and 32 greedy decode steps,
-               and ``ServeEngine.generate`` on 8 x 32-token prompts with
+               8 requests of a 16-token prefix and 16 greedy decode steps,
+               and ``ServeEngine.generate`` on 8 x 16-token prompts with
                16 new tokens (no launch in either); then the weights cast
                to f32 and the logits of the kernel path held against the
                plain path on 4096 tokens at ``PATH_TOL`` (in bf16 the
                difference is reported: 94 random residual blocks carry a
                last-bit difference to O(0.3) of the logits);
+     dense_path, seamless_path — the launcher trains full-width
+               llama3.2-1b (3 steps of dense_reduce, 1 of sparse_gather)
+               and seamless-m4t-large-v2 (2 steps of dense_reduce) at 8 x
+               256 tokens, a world of 1 over NCCL: finite losses, the
+               first within 1.0 of ln(vocab), densify once a step,
+               collective calls, the strategies' first losses within 1e-3;
+               step ms, tok/s, device busy ms of one step, peak memory,
+               optimizer-state bytes;
+     dense_prefill, dense_f32, dense_serve — full-width chatglm3-6b
+               (6.24 B parameters): the prefill step as ``prefill`` on
+               32768 tokens, 28 "sm90" launches a forward, the timed
+               run's logits against the plain chunked path over all 32768
+               tokens at ``PATH_TOL``, the top device kernels; the f32
+               check as the hybrid's on the first 4096 tokens;
+               ``ServeEngine.generate`` as serve;
+     vlm_prefill, vlm_f32, vlm_embeds — full-width internvl2-1b: the
+               same prefill step and f32 check over 256 patch embeddings
+               and 32768 tokens (24 "sm90" launches at 33024 rows), then
+               ``prefill(embeds=, tokens=)`` on 2 requests of 256 patches
+               and 16 tokens, its last logits against the forward's at
+               ``PATH_TOL`` (in f32; the bf16 difference is reported beside
+               the one between the forward's two bf16 paths);
  10. small   — the reduced transformer-big and zamba2-7b in f32 train 2
                steps each on the card and on the CPU, with the identity
                wire and with ``--codec int8 --error-feedback``, and the
@@ -179,7 +214,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                then its prefill step and 4 translate steps on the card (the
                kernel's f32 path) and the CPU, logits within 3e-5; the
                reduced zamba2 the same (forward, 4-token prefix, 4 decode
-               steps).
+               steps); ``small_dense``: the reduced llama3.2-1b,
+               chatglm3-6b (non-zero q/k/v biases) and internvl2-1b the
+               same (its prefill through the 16 patches first).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -414,7 +451,91 @@ def phase_kernel(D, tokens) -> dict:
         "shape", "kernel_ms", "plain_ms", "library_ms", "back_to_back_ms",
         "bound_ms", "bound_by", "bound_bytes")}
     print(json.dumps(timing))
-    return {"max_abs_err": max_err, **timing}
+    vocabs = densify_vocab_cases(D, vals)
+    return {"max_abs_err": max(max_err, vocabs.pop("max_abs_err")),
+            **timing, "vocabs": vocabs}
+
+
+# the configs whose training step densifies the tied or untied embedding
+# at vocabularies whose per-id counts do not fit group_rows's shared
+# memory (vocab + 1 ints over 200 KiB: vocab > 51,199), and whether the
+# bf16 case is timed
+VOCAB_CONFIGS = (("llama3.2-1b", True), ("seamless-m4t-large-v2", True),
+                 ("chatglm3-6b", False), ("qwen2.5-32b", False),
+                 ("deepseek-7b", False), ("internvl2-1b", False))
+SMEM_VOCAB_LIMIT = 51199           # (51199 + 1) * 4 B = 200 KiB
+
+
+def densify_vocab_cases(D, vals) -> dict:
+    """densify at the new configs' vocabularies, each case bitwise equal
+    to ``densify_plain`` on the card (exact values: every sum is exact,
+    so any order gives the same bits) and across two launches: each
+    config's (8 x 256 tokens of its pipeline, d_model) at its vocabulary,
+    llama3.2-1b's also on f32 values, and vocab 51,199 (counts in shared
+    memory) against 51,200 (spilled) at d 1024.  The bf16 training
+    shapes of llama3.2-1b and seamless-m4t-large-v2 are timed as device
+    time beside ``index_add_`` and the byte bound, with each of the three
+    kernels' own device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for arch, timed in VOCAB_CONFIGS:
+        cfg = get_config(arch)
+        tok = torch.from_numpy(make_pipeline(cfg, 8, 256).batch_at(0)[
+            "tokens"].reshape(-1)).to(dev)
+        cases.append((f"{arch}_bf16", tok, vals(tok.numel(), torch.bfloat16,
+                                                cfg.d_model),
+                      cfg.vocab, cfg.d_model, timed))
+        if arch == "llama3.2-1b":
+            cases.append((f"{arch}_f32", tok, vals(tok.numel(), torch.float32,
+                                                   cfg.d_model),
+                          cfg.vocab, cfg.d_model, False))
+    for vocab in (SMEM_VOCAB_LIMIT, SMEM_VOCAB_LIMIT + 1):
+        ids = torch.cat([torch.randint(0, vocab, (2047,), dtype=torch.int32,
+                                       device=dev, generator=gen),
+                         torch.tensor([vocab - 1], dtype=torch.int32,
+                                      device=dev)])
+        cases.append((f"vocab_{vocab}_bf16", ids,
+                      vals(2048, torch.bfloat16, 1024), vocab, 1024, False))
+    out = {"max_abs_err": 0.0}
+    for name, idx, v, vb, width, timed in cases:
+        got = D.densify_kernel(idx, v, (vb, width))
+        again = D.densify_kernel(idx, v, (vb, width))
+        torch.cuda.synchronize()
+        ref = D.densify_plain(idx, v, (vb, width))
+        if got.dtype != v.dtype or tuple(got.shape) != (vb, width):
+            fail(f"densify {name}: got {got.dtype} {tuple(got.shape)}")
+        if not torch.equal(got, again):
+            fail(f"densify {name}: two launches on the same inputs differ")
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.equal(got, ref):
+            fail(f"densify {name}: kernel differs from the plain version "
+                 f"(max abs err {err})")
+        line = {"phase": "kernel", "kernel": "densify", "case": name,
+                "n": int(idx.numel()), "vocab": vb, "d": width,
+                "dtype": str(v.dtype).split(".")[-1],
+                "counts": ("shared memory" if vb <= SMEM_VOCAB_LIMIT
+                           else "spilled to the workspace"),
+                "max_abs_err": err, "bitwise_vs_plain": True,
+                "bitwise_across_launches": True}
+        del got, again, ref
+        if timed:
+            t = densify_timing(D, idx, v, vb, width)
+            t["kernels_device_ms_l2_flushed"] = kernel_device_ms(
+                lambda: D.densify_kernel(idx, v, (vb, width)))
+            group = [ms for k, ms in t["kernels_device_ms_l2_flushed"].items()
+                     if "group_rows" in k]
+            if len(group) != 1:
+                fail(f"densify {name}: the profiler shows no one group_rows "
+                     f"kernel: {t['kernels_device_ms_l2_flushed']}")
+            t["group_rows_ms"] = group[0]
+            line["timing"] = t
+            out[name] = t
+        print(json.dumps(line))
+        torch.cuda.empty_cache()
+    return out
 
 
 def densify_timing(D, idx, v, vb, width) -> dict:
@@ -461,54 +582,102 @@ FULL_WIDTH = ["--arch", "transformer-big", "--dist", "horovod",
               "--log-every", "1", "--device", "cuda"]
 
 
-def phase_path(train, D, comm) -> dict:
-    """The launcher on full-width transformer-big, identity wire; returns
-    the densify launches it made and the first-step losses."""
-    common = FULL_WIDTH
-    launches = 0
-    first_loss, median_ms = {}, {}
-    for accum, steps, collective in (
-            ("dense_reduce", 4, comm.all_reduce_dense),
-            ("sparse_gather", 1, comm.all_gather_dense)):
-        torch.cuda.reset_peak_memory_stats()
-        D.densify_kernel.launches = 0
-        collective.calls = 0
-        result = train.run(common + ["--grad-accum", accum,
-                                     "--steps", str(steps)])
-        torch.cuda.synchronize()
-        got, calls = D.densify_kernel.launches, collective.calls
-        hist = result["history"]
-        losses = [h["loss"] for h in hist]
-        if len(losses) != steps or not all(map(math.isfinite, losses)):
-            fail(f"path {accum}: losses {losses}")
-        if got != steps:
-            fail(f"path {accum}: densify launched {got} times in "
-                 f"{steps} steps (want one per step)")
-        if calls == 0:
-            fail(f"path {accum}: no {collective.__name__} through "
-                 f"torch.distributed")
-        first_loss[accum] = losses[0]
-        steady = [h["step_ms"] for h in hist[1:]] or [hist[0]["step_ms"]]
-        median_ms[accum] = statistics.median(steady)
-        print(json.dumps({
-            "phase": "path", "grad_accum": accum, "codec": "identity",
-            "steps": steps,
-            "losses": losses, "densify_launches": got,
-            f"{collective.__name__}_calls": calls,
-            "step_ms_first": hist[0]["step_ms"],
-            "step_ms_median_after_first": statistics.median(steady),
-            "tok_per_s": hist[-1]["tok_per_s"],
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}))
-        launches += got
-    # same params, same first batch: the loss precedes the exchange
-    a, b = first_loss["dense_reduce"], first_loss["sparse_gather"]
-    if abs(a - b) > 1e-3 * abs(a):
-        fail(f"path: first-step loss differs between strategies {a} {b}")
-    # initial loss of random tied-embedding weights is near ln(vocab)
-    if abs(a - math.log(33708)) > 1.0:
-        fail(f"path: first-step loss {a} far from ln(vocab)")
+def full_width(arch):
+    """``FULL_WIDTH``'s launcher flags (8 x 256 tokens a worker, a world
+    of 1 over NCCL) with ``arch`` in place of transformer-big."""
+    return [arch if a == "transformer-big" else a for a in FULL_WIDTH]
+
+
+def phase_path(train, D, comm, arch, runs, tag) -> dict:
+    """The launcher trains full-width ``arch`` for each (grad_accum,
+    steps) of ``runs`` (identity wire), the counts reset just before a
+    run and read just after: finite losses, a first-step loss within 1.0
+    of ln(vocab) (random weights), densify launched once a step,
+    collective calls above 0 and, with both strategies, first-step
+    losses within 1e-3 relative (same weights, same batch: the loss
+    precedes the exchange).  Each run prints its step ms, tok/s, the
+    device busy ms and top kernels of one more step under a CUDA-only
+    ``torch.profiler``, peak memory (init included) and the optimizer
+    state's bytes, held equal to ``optimizer_state_bytes`` of the
+    launcher's plan.  Returns the densify launches, the first-step
+    losses and the median step ms of each strategy."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import nbytes
+    from repro_torch.configs import get_config
+    from repro_torch.optim import zero1 as z1
+    vocab = get_config(arch).vocab
+    created = _world_of_one(train)
+    launches, first_loss, median_ms, lines = 0, {}, {}, {}
+    try:
+        for accum, steps in runs:
+            argv = full_width(arch) + ["--grad-accum", accum,
+                                       "--steps", str(steps)]
+            plan, plan_args = exchange_plan(train, argv), \
+                train.parse_args(argv)
+            collective = ("all_reduce_dense" if accum == "dense_reduce"
+                          else "all_gather_dense")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            D.densify_kernel.launches = 0
+            comm.reset_calls()
+            t0 = time.perf_counter()
+            result = train.run(argv, log=lambda s: None)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got, calls = D.densify_kernel.launches, comm.calls()
+            peak = torch.cuda.max_memory_allocated()
+            hist = result["history"]
+            losses = [h["loss"] for h in hist]
+            what = f"{tag} {arch} {accum}"
+            if len(losses) != steps or not all(map(math.isfinite, losses)):
+                fail(f"{what}: losses {losses}")
+            if got != steps:
+                fail(f"{what}: densify launched {got} times in {steps} steps "
+                     f"(want one per step)")
+            if calls[collective] == 0:
+                fail(f"{what}: no {collective} through torch.distributed")
+            if abs(losses[0] - math.log(vocab)) > 1.0:
+                fail(f"{what}: first-step loss {losses[0]} far from "
+                     f"ln({vocab}) = {math.log(vocab)}")
+            state_b = nbytes(result["opt_state"])
+            if state_b != z1.optimizer_state_bytes(plan, 1):
+                fail(f"{what}: the optimizer state holds {state_b} B, "
+                     f"optimizer_state_bytes says "
+                     f"{z1.optimizer_state_bytes(plan, 1)} B")
+            first_loss[accum] = losses[0]
+            launches += got
+            steady = [h["step_ms"] for h in hist[1:]] or [hist[0]["step_ms"]]
+            median_ms[accum] = statistics.median(steady)
+            line = {"phase": tag, "arch": arch,
+                    "grad_accum": accum, "codec": "identity",
+                    "steps": steps, "tokens_per_step":
+                        plan_args.batch_per_worker * plan_args.seq_len,
+                    "losses": losses, "ln_vocab": math.log(vocab),
+                    "densify_launches": got, "collective_calls": calls,
+                    "step_ms_first": hist[0]["step_ms"],
+                    "step_ms_median_after_first": median_ms[accum],
+                    "tok_per_s": hist[-1]["tok_per_s"],
+                    "one_step_profiled": step_profile(train, argv, result),
+                    "max_memory_allocated": peak,
+                    "optimizer_state_bytes": state_b,
+                    "training_state_bytes": nbytes(
+                        (result["params"], result["opt_state"],
+                         result["exchange_state"])),
+                    "run_s_with_init": run_s}
+            print(json.dumps(line))
+            lines[accum] = line
+            del result
+            torch.cuda.empty_cache()
+    finally:
+        if created:
+            dist.destroy_process_group()
+    if len(first_loss) == 2:
+        a, b = first_loss["dense_reduce"], first_loss["sparse_gather"]
+        if abs(a - b) > 1e-3 * abs(a):
+            fail(f"{tag} {arch}: first-step loss differs between strategies "
+                 f"{a} {b}")
     return {"densify_launches": launches, "first_loss": first_loss,
-            "step_ms_median": median_ms}
+            "step_ms_median": median_ms, "runs": lines}
 
 
 def phase_quantize_kernel(Q) -> dict:
@@ -1925,8 +2094,13 @@ def zero1_busy_ms(train, argv, result, base=None) -> float:
     residuals copied, so the run's own state is left as it was): the
     kernels, copies and memsets of the step under a CUDA-only
     ``torch.profiler``."""
+    return step_profile(train, argv, result, base)["device_busy_ms"]
+
+
+def step_profile(train, argv, result, base=None) -> dict:
+    """``top_device_kernels`` of one more step from a run's final state,
+    as ``zero1_busy_ms`` takes it."""
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.codecs import ExchangeState
     from repro_torch.models import build_model
     from repro_torch.training import make_train_step
@@ -1939,12 +2113,8 @@ def zero1_busy_ms(train, argv, result, base=None) -> float:
     batch = batch_at(args.steps)
     ex = ExchangeState([s.clone() if isinstance(s, torch.Tensor) else s
                         for s in result["exchange_state"].bucket_states])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = step(result["params"], result["opt_state"], ex, batch)
-        torch.cuda.synchronize()
-    del out
-    return sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    return top_device_kernels(
+        lambda: step(result["params"], result["opt_state"], ex, batch))
 
 
 def phase_zero1(train, D, Q, comm, ops) -> dict:
@@ -2469,6 +2639,7 @@ ATTN_SCALED_TOL = dict(rel_l2=1e-2, row_rel_l2=1.5e-2, max_abs_ulps=2)
 # A wrong mask or a wrong head moves the logits by O(1) everywhere.
 PATH_TOL = dict(max_abs=0.25, rel_l2=2e-2)
 PREFILL_LEN, N_ENC = 32768, 256
+VLM_PATCHES = 256                  # internvl2-1b's vision prefix
 TRANSLATE_B, TRANSLATE_PREFIX, TRANSLATE_NEW = 8, 16, 32
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
 
@@ -2540,6 +2711,14 @@ def phase_attn_kernel(FA) -> dict:
         # zamba2-7b's shared attention block, head dim 112
         ("hybrid_self", 1, PREFILL_LEN, PREFILL_LEN, 32, 32, 112, None,
          True, bf, bf),
+        # chatglm3-6b's prefill: head dim 128, 32 query heads on 2 kv
+        # heads (GQA 16)
+        ("dense_d128_self", 1, PREFILL_LEN, PREFILL_LEN, 32, 2, 128, None,
+         True, bf, bf),
+        # internvl2-1b's prefill: 256 patches + 32768 tokens, 14 query
+        # heads on 2 kv heads (GQA 7)
+        ("vlm_gqa7_self", 1, VLM_PATCHES + PREFILL_LEN,
+         VLM_PATCHES + PREFILL_LEN, 14, 2, 64, None, True, bf, bf),
     ]
     ref_cases = [   # tests/test_kernels.py CASES, in f32 and bf16
         (2, 16, 16, 4, 2, 32, None, True), (1, 64, 64, 2, 2, 64, 16, True),
@@ -2578,7 +2757,7 @@ def phase_attn_kernel(FA) -> dict:
     max_err = 0.0
     tensors = {}
     want_sm90 = {"prefill_self", "prefill_cross", "hybrid_self",
-                 "hybrid_window"}
+                 "hybrid_window", "dense_d128_self", "vlm_gqa7_self"}
     for name, b, sq, sk, h, hkv, d, window, causal, qdt, kvdt in cases:
         q = _randn((b, sq, h, d), qdt, gen)
         k = _randn((b, sk, hkv, d), kvdt, gen)
@@ -2665,12 +2844,20 @@ def phase_attn_kernel(FA) -> dict:
                     q, k, v, **runs[order]), 50 if one_row else 10)
             times[order] = min(times.get(order, t), t)
         ms, plain_ms = times["kernel"], times["plain"]
-        library_ms = None
+        library_ms, library_kv = None, None
         if q.dtype == k.dtype:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # GQA: SDPA gets k and v expanded to the query heads (outside
+            # the timed call), not enable_gqa=True, so it takes its fused
+            # bf16 kernel and not the math path
+            group = q.shape[2] // k.shape[2]
+            library_kv = "expanded" if group > 1 else "as given"
+            qt, kt, vt = (x.transpose(1, 2) for x in (
+                q, k.repeat_interleave(group, dim=2),
+                v.repeat_interleave(group, dim=2)))
             library_ms = cuda_ms_cold(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal), 10)
+            del qt, kt, vt
         timing_line = {
             "phase": "attn_timing", "shape": name, "variant": variant,
             "q": list(q.shape), "kv": list(k.shape),
@@ -2682,6 +2869,7 @@ def phase_attn_kernel(FA) -> dict:
                              if library_ms is not None else
                              "none: no single call takes bf16 q with f32 "
                              "k, v"),
+            "library_kv": library_kv, "library_enable_gqa": False,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
             "bytes": nbytes, "tflops": flops / ms / 1e9,
             "l2": "flushed before each call"}
@@ -2761,9 +2949,9 @@ SSD_TOL = dict(rtol=2e-5, atol=2e-5)        # tests/test_kernels.py
 SSD_SCALED_TOL = dict(rel_l2=1e-4, max_abs_frac=1e-4)
 SSD_MAIN = (1, PREFILL_LEN, 112, 64, 64, 256)    # b, s, h, p, n, chunk
 SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
-HYBRID_CHECK_LEN = 4096
-HYBRID_B, HYBRID_PREFIX, HYBRID_NEW = 8, 16, 32
-HSERVE_B, HSERVE_PROMPT, HSERVE_NEW = 8, 32, 16
+CHECK_LEN = 4096         # tokens of the f32 checks and the hybrid bf16 report
+HYBRID_B, HYBRID_PREFIX, HYBRID_NEW = 8, 16, 16
+HSERVE_B, HSERVE_PROMPT, HSERVE_NEW = 8, 16, 16
 
 
 def ssd_bound(b, s, h, p, n, chunk, in_bytes):
@@ -2968,26 +3156,6 @@ def phase_ssd_kernel(K, ops) -> dict:
     return {"max_abs_err": max_err, **timing}
 
 
-def phase_hybrid_init(model):
-    """Full-width zamba2-7b in bf16, weights from seed 0 drawn on the
-    CPU generator layer by layer into the card; init time and memory."""
-    from repro_torch.tree import tree_flatten
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n = sum(t.numel() for t in tree_flatten(params)[0])
-    if n != 6_750_840_528:
-        fail(f"hybrid init: {n} parameters (want 6750840528)")
-    print(json.dumps({"phase": "hybrid_init", "init_s": init_s,
-                      "parameters": n,
-                      "memory_allocated": torch.cuda.memory_allocated(),
-                      "max_memory_allocated":
-                          torch.cuda.max_memory_allocated()}))
-    return params
-
-
 def phase_hybrid_prefill(model, params, K, FA) -> dict:
     """The prefill step (``forward(attn_impl="kernel")`` and ``head`` on
     the last position) over one 32768-token sequence: 81 SSD launches and
@@ -2998,7 +3166,7 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
     bf16, 94 residual blocks of random weights carry any last-bit
     difference to O(0.3) of the logits (either kernel alone does it,
     PERF.md), so the check at ``PATH_TOL`` is made in f32
-    (``phase_hybrid_f32``)."""
+    (``phase_f32_prefill``)."""
     from repro_torch.data import make_pipeline
     cfg = model.cfg
     tokens = torch.from_numpy(make_pipeline(cfg, 1, PREFILL_LEN).batch_at(
@@ -3038,11 +3206,11 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
                 or not torch.isfinite(logits).all():
             fail(f"hybrid prefill: logits {tuple(logits.shape)} or not "
                  f"finite")
-        short = tokens[:, :HYBRID_CHECK_LEN]
+        short = tokens[:, :CHECK_LEN]
         got, short_ms = timed(lambda: prefill_step(short, "kernel"))
         torch.cuda.empty_cache()
         plain, plain_ms = timed(lambda: prefill_step(short, "chunked"))
-    diff = logits_diff(f"hybrid prefill {HYBRID_CHECK_LEN}", got, plain)
+    diff = logits_diff(f"hybrid prefill {CHECK_LEN}", got, plain)
     ms = statistics.median(runs)
     line = {"phase": "hybrid_prefill", "tokens": PREFILL_LEN,
             "ssd_launches_per_forward": ssd_n,
@@ -3050,7 +3218,7 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
             "flash_launches_per_forward": fa_n,
             "flash_launches_by_variant": by_variant, "ms_runs": runs,
             "ms_median": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
-            "check_tokens": HYBRID_CHECK_LEN,
+            "check_tokens": CHECK_LEN,
             "kernel_ms_check_len": short_ms,
             "plain_chunked_ms_check_len": plain_ms,
             "logits_vs_plain_bf16": diff, "max_memory_allocated": peak}
@@ -3058,49 +3226,61 @@ def phase_hybrid_prefill(model, params, K, FA) -> dict:
     return line
 
 
-def phase_hybrid_f32(model, params, K, FA) -> dict:
-    """Full width and full depth in f32 (the bf16 weights cast, 27 GB):
-    the prefill step's logits on the first 4096 tokens, the kernel path
-    (both kernels' f32 paths; 81 SSD launches, all on "simt", and 13
-    flash attention launches)
-    against the plain path, at ``PATH_TOL``."""
+def phase_f32_prefill(model, params, K, FA, tag) -> dict:
+    """Full width and full depth with the bf16 weights cast to f32 (27 GB
+    for zamba2-7b): the prefill step's logits on the first 4096 tokens
+    (after the whole vision prefix where the config has one), the kernel
+    path (the kernels' f32 variants: every flash attention launch, and
+    every SSD launch of the hybrid, on "simt") against the plain chunked
+    path, at ``PATH_TOL``.  In bf16, 94 residual blocks of random weights
+    carry any last-bit difference to O(0.3) of zamba2-7b's logits
+    (PERF.md), so for the hybrid this is the check that holds the kernel
+    path; for the dense and vlm families it stands beside the bf16 one."""
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
-    f32 = build_model(model.cfg.with_(dtype="float32"))
+    cfg = model.cfg
+    f32 = build_model(cfg.with_(dtype="float32"))
     params = tree_map(lambda t: t.float(), params)
     torch.cuda.empty_cache()
-    tokens = torch.from_numpy(make_pipeline(model.cfg, 1, PREFILL_LEN)
-                              .batch_at(0)["tokens"][:, :HYBRID_CHECK_LEN]
-                              ).cuda()
+    batch = make_pipeline(cfg, 1, PREFILL_LEN).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+             if k != "labels"}
+    batch["tokens"] = batch["tokens"][:, :CHECK_LEN]
+    hybrid = cfg.family == "hybrid"
+    cross = cfg.frontend is not None and cfg.frontend.cross_attention
+    want = {"flash": cfg.n_layers // cfg.attn_every if hybrid
+            else (2 if cross else 1) * cfg.n_layers,
+            "ssd": cfg.n_layers if hybrid else 0}
 
     def prefill_step(impl):
-        h = f32.forward(params, {"tokens": tokens}, attn_impl=impl)
+        h = f32.forward(params, batch, attn_impl=impl)
         return f32.head(params, h[:, -1:])[:, 0]
 
     with torch.no_grad():
         K.reset_launches()
         FA.reset_launches()
         got, ms = timed(lambda: prefill_step("kernel"))
-        launches = (K.ssd_kernel.launches, FA.flash_attention_kernel.launches)
-        if launches != (model.cfg.n_layers,
-                        model.cfg.n_layers // model.cfg.attn_every) \
-                or K.ssd_kernel.launches_by_variant["simt"] != launches[0]:
-            fail(f"hybrid f32: {launches} SSD and flash attention launches "
-                 f"(SSD by variant {K.ssd_kernel.launches_by_variant})")
+        launches = {
+            "flash": dict(FA.flash_attention_kernel.launches_by_variant),
+            "ssd": dict(K.ssd_kernel.launches_by_variant)}
+        if launches != {"flash": {"sm90": 0, "mma": 0,
+                                  "simt": want["flash"]},
+                        "ssd": {"sm90": 0, "simt": want["ssd"]}}:
+            fail(f"{tag}: launches by variant {launches} (want {want}, "
+                 f"all on simt)")
         plain, plain_ms = timed(lambda: prefill_step("chunked"))
-    diff = check_logits(f"hybrid f32 prefill {HYBRID_CHECK_LEN}", got, plain)
-    line = {"phase": "hybrid_f32", "tokens": HYBRID_CHECK_LEN,
-            "ssd_launches": launches[0], "flash_launches": launches[1],
-            "kernel_ms": ms, "plain_chunked_ms": plain_ms,
-            "logits_vs_plain": diff, "tol": PATH_TOL,
-            "max_abs_logit": plain.abs().max().item()}
+    diff = check_logits(f"{tag} prefill {CHECK_LEN}", got, plain)
+    line = {"phase": tag, "arch": cfg.name, "tokens": CHECK_LEN,
+            "launches_by_variant": launches, "kernel_ms": ms,
+            "plain_chunked_ms": plain_ms, "logits_vs_plain": diff,
+            "tol": PATH_TOL, "max_abs_logit": plain.abs().max().item()}
     print(json.dumps(line))
     return line
 
 
 def phase_hybrid_decode(model, params, K, FA) -> dict:
-    """8 requests: ``Model.prefill`` over a 16-token prefix, then 32
+    """8 requests: ``Model.prefill`` over a 16-token prefix, then 16
     greedy ``decode_step``s (recurrent Mamba2 steps, cached shared
     attention: no kernel launch, as in the reference); shapes, lengths
     and finite logits asserted.  Not held against the forward: where a
@@ -3147,7 +3327,7 @@ def phase_hybrid_decode(model, params, K, FA) -> dict:
 
 
 def phase_hybrid_serve(model, params, K, FA) -> dict:
-    """``ServeEngine.generate`` on 8 prompts of 32 tokens, 16 new tokens,
+    """``ServeEngine.generate`` on 8 prompts of 16 tokens, 16 new tokens,
     unchanged on the hybrid cache: no kernel launch; shape and EOS
     masking asserted."""
     import numpy as np
@@ -3254,45 +3434,65 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_prefill(model, params, FA) -> dict:
+def phase_prefill(model, params, FA, tag="prefill") -> dict:
     """The prefill step (``forward(attn_impl="kernel")`` and ``head`` on
     the last position, as the reference's dry-run lowers it) on one
-    32768-token sequence with 256 encoder states; 12 kernel launches per
-    forward; logits held against the plain chunked path."""
+    32768-token sequence with the config's frontend: transformer-big's
+    256 encoder states (cross-attended, so two launches a layer) or
+    internvl2-1b's 256 patch embeddings (a prefix of the query rows, one
+    launch a layer at 33024 rows, dropped after the final norm).  Every
+    launch on "sm90" (counts reset just before each run, read just
+    after); the timed run's logits held against the plain chunked path
+    at ``PATH_TOL``; ms, tok/s, peak memory and the top device kernels of
+    one profiled run."""
     from repro_torch.data import make_pipeline
-    batch = make_pipeline(model.cfg, 1, PREFILL_LEN).batch_at(0)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    cfg = model.cfg
+    batch = make_pipeline(cfg, 1, PREFILL_LEN).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+             if k != "labels"}
+    fe = cfg.frontend
+    cross = fe is not None and fe.cross_attention
+    n_prefix = fe.n_embeds if fe is not None and not cross else 0
+    want = (2 if cross else 1) * cfg.n_layers
 
     def prefill_step(impl):
         h = model.forward(params, batch, attn_impl=impl)
+        if tuple(h.shape) != (1, PREFILL_LEN, cfg.d_model):
+            fail(f"{tag}: hidden states {tuple(h.shape)} (the prefix is "
+                 f"not dropped?)")
         return model.head(params, h[:, -1:])[:, 0]
-    want = 2 * model.cfg.n_layers        # self- and cross-attention
     with torch.no_grad():
         prefill_step("kernel")                     # warm-up
+        torch.cuda.reset_peak_memory_stats()
         runs = []
         for _ in range(3):
             FA.reset_launches()
             logits, ms = timed(lambda: prefill_step("kernel"))
             launches = FA.flash_attention_kernel.launches
             by_variant = dict(FA.flash_attention_kernel.launches_by_variant)
-            if launches != want:
-                fail(f"prefill: flash attention launched {launches} times "
-                     f"in one forward (want {want})")
-            if by_variant != {"sm90": want, "mma": 0, "simt": 0}:
-                fail(f"prefill: flash attention launches by variant "
-                     f"{by_variant} (want all {want} on sm90)")
+            if launches != want or by_variant != {"sm90": want, "mma": 0,
+                                                  "simt": 0}:
+                fail(f"{tag}: flash attention launches {launches}, by "
+                     f"variant {by_variant} in one forward (want all "
+                     f"{want} on sm90)")
             runs.append(ms)
+        peak = torch.cuda.max_memory_allocated()
+        profiled = top_device_kernels(lambda: prefill_step("kernel"))
         torch.cuda.empty_cache()
         plain, plain_ms = timed(lambda: prefill_step("chunked"))
-    diff = check_logits("prefill", logits, plain)
+        torch.cuda.empty_cache()
+    diff = check_logits(tag, logits, plain)
     ms = statistics.median(runs)
-    line = {"phase": "prefill", "tokens": PREFILL_LEN, "enc": N_ENC,
+    line = {"phase": tag, "arch": cfg.name, "tokens": PREFILL_LEN,
+            "frontend_embeddings": fe.n_embeds if fe is not None else 0,
+            "cross_attention": cross,
+            "query_rows_per_launch": n_prefix + PREFILL_LEN,
             "launches_per_forward": launches,
             "launches_by_variant": by_variant, "ms_runs": runs,
             "ms_median": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
             "plain_chunked_ms": plain_ms, "logits_vs_plain": diff,
-            "tol": PATH_TOL,
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            "tol": PATH_TOL, "max_memory_allocated": peak,
+            "profiled": profiled}
     print(json.dumps(line))
     return {"launches": launches, **line}
 
@@ -3365,7 +3565,7 @@ def phase_translate(model, params, FA) -> dict:
     return {"launches": launches, **line}
 
 
-def phase_serve(model, params, FA) -> dict:
+def phase_serve(model, params, FA, tag="serve") -> dict:
     """``ServeEngine.generate`` on 8 prompts of 64 tokens, 32 new tokens:
     no encoder states, so no kernel launch (the reference's engine passes
     none); output shape and EOS masking asserted."""
@@ -3381,9 +3581,9 @@ def phase_serve(model, params, FA) -> dict:
     launches = FA.flash_attention_kernel.launches
     if out.shape != (SERVE_B, SERVE_NEW) or out.dtype != np.int32 \
             or not ((out >= 0) & (out < model.cfg.vocab)).all():
-        fail(f"serve: output {out.shape} {out.dtype} out of range")
+        fail(f"{tag}: output {out.shape} {out.dtype} out of range")
     if launches != 0:
-        fail(f"serve: {launches} kernel launches without encoder states")
+        fail(f"{tag}: {launches} kernel launches without encoder states")
     # prefill and the first token alone: the rest of ``ms`` is decode
     _, pre_ms = timed(lambda: probe.generate(prompts, max_new=1))
     eos = int(out[0, 2])
@@ -3392,11 +3592,11 @@ def phase_serve(model, params, FA) -> dict:
     for row in masked:
         hits = np.flatnonzero(row == eos)
         if hits.size and not (row[hits[0]:] == eos).all():
-            fail(f"serve: row continues after EOS {eos}: {row.tolist()}")
+            fail(f"{tag}: row continues after EOS {eos}: {row.tolist()}")
     if not (masked[0, 2:] == eos).all():
-        fail("serve: the first row did not stop at its third token")
+        fail(f"{tag}: the first row did not stop at its third token")
     decode_ms = (ms - pre_ms) / (SERVE_NEW - 1)
-    line = {"phase": "serve", "requests": SERVE_B, "prompt": SERVE_PROMPT,
+    line = {"phase": tag, "arch": model.cfg.name, "requests": SERVE_B, "prompt": SERVE_PROMPT,
             "new_tokens": SERVE_NEW, "launches": launches,
             "generate_ms": ms, "generate_first_token_ms": pre_ms,
             "decode_ms_per_token_step": decode_ms,
@@ -3446,6 +3646,180 @@ def phase_small_forward() -> None:
                       "max_abs_err": worst, "tol": tol}))
 
 
+# ---------------------------------------------------------------------------
+# the dense and vlm families, and seamless-m4t-large-v2's training step
+# ---------------------------------------------------------------------------
+
+# parameters of the configs that phase_init builds at full width
+FULL_PARAMS = {"zamba2-7b": 6_750_840_528, "chatglm3-6b": 6_243_584_000,
+               "internvl2-1b": 493_780_992}
+VLM_B, VLM_PROMPT = 2, 16          # requests and tokens of prefill(embeds=)
+
+
+def phase_init(model):
+    """Full-width weights in bf16 from seed 0, drawn on the CPU generator
+    layer by layer into the card; init time, parameter count and
+    memory."""
+    from repro_torch.tree import tree_flatten
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_flatten(params)[0])
+    want = FULL_PARAMS[model.cfg.name]
+    if n != want:
+        fail(f"{model.cfg.name} init: {n} parameters (want {want})")
+    print(json.dumps({"phase": "init", "arch": model.cfg.name,
+                      "init_s": init_s, "parameters": n,
+                      "memory_allocated": torch.cuda.memory_allocated(),
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated()}))
+    return params
+
+
+def top_device_kernels(fn, n: int = 8) -> dict:
+    """One profiled run of ``fn()`` under a CUDA-only ``torch.profiler``:
+    its device busy ms and the ``n`` kernels (or copies) with the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    events.sort(key=lambda e: -e.device_time_total)
+    return {"device_busy_ms": sum(e.device_time_total for e in events) / 1e3,
+            "top": [{"name": e.key[:90], "ms": e.device_time_total / 1e3,
+                     "calls": e.count} for e in events[:n]]}
+
+
+def phase_vlm_embeds(model, params, FA) -> dict:
+    """``Model.prefill(embeds=, tokens=)`` on 2 requests of 256 patch
+    embeddings and 16 tokens (the patches one position at a time through
+    ``decode_step(input_embeds=)``, then the tokens): its last logits
+    against the forward's last position (the kernel path, one "sm90"
+    launch a layer at 272 rows) at ``PATH_TOL``, as the translate phase
+    holds its logits; cache lengths asserted.  The forward's plain
+    chunked path is compared too.  If bf16 rounding alone parts the
+    sequential prefill from the forward, the line says so and the same
+    comparison with the weights in f32 (the kernel's f32 variant) is
+    what holds them, at the same ``PATH_TOL``, as in
+    ``phase_f32_prefill``; the bf16 difference must then stay within
+    twice the one between the forward's own two bf16 paths (kernel and
+    chunked), the rounding's scale in this run, so that a bf16-only
+    fault still fails."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    batch = make_pipeline(cfg, VLM_B, VLM_PROMPT).batch_at(1)
+    toks = torch.from_numpy(batch["tokens"]).cuda()
+    fe = torch.from_numpy(batch["frontend"]).cuda()
+    n = fe.shape[1] + VLM_PROMPT
+
+    def both(m, p, impl):
+        """(forward's last logits, prefill's last logits, its ms)."""
+        h = m.forward(p, {"tokens": toks, "frontend": fe}, attn_impl=impl)
+        cache = m.init_cache(VLM_B, n, device="cuda")
+        (got, cache), ms = timed(lambda: m.prefill(
+            p, cache, toks, embeds=fe, attn_impl="kernel"))
+        if cache["length"].tolist() != [n] * VLM_B:
+            fail(f"vlm prefill(embeds=): lengths {cache['length'].tolist()}")
+        return m.head(p, h[:, -1]), got, ms
+    with torch.no_grad():
+        FA.reset_launches()
+        want, got, ms = both(model, params, "kernel")
+        fwd = dict(FA.flash_attention_kernel.launches_by_variant)
+        if fwd != {"sm90": cfg.n_layers, "mma": 0, "simt": 0}:
+            fail(f"vlm forward of {n} rows: launches {fwd}")
+        chunked = model.head(params, model.forward(
+            params, {"tokens": toks, "frontend": fe},
+            attn_impl="chunked")[:, -1])
+        f32 = build_model(cfg.with_(dtype="float32"))
+        p32 = tree_map(lambda t: t.float(), params)
+        FA.reset_launches()
+        want32, got32, ms32 = both(f32, p32, "kernel")
+        fwd32 = dict(FA.flash_attention_kernel.launches_by_variant)
+        if fwd32 != {"sm90": 0, "mma": 0, "simt": cfg.n_layers}:
+            fail(f"vlm f32 forward of {n} rows: launches {fwd32}")
+        del p32
+    bf16 = logits_diff("vlm prefill(embeds=) vs forward, bf16", got, want)
+    bf16_within = bf16["max_abs"] <= PATH_TOL["max_abs"] \
+        and bf16["rel_l2"] <= PATH_TOL["rel_l2"]
+    rounding = logits_diff("vlm chunked forward", chunked, want)
+    if not bf16_within and any(bf16[k] > 2 * rounding[k] for k in bf16):
+        fail(f"vlm prefill(embeds=) vs forward, bf16: {bf16}, over "
+             f"{PATH_TOL} and over twice the forward's own two paths' "
+             f"difference {rounding}")
+    f32_diff = check_logits("vlm prefill(embeds=) vs forward, f32", got32,
+                            want32)
+    line = {"phase": "vlm_embeds", "requests": VLM_B,
+            "patches": fe.shape[1], "tokens": VLM_PROMPT,
+            "forward_launches_by_variant": fwd, "prefill_ms": ms,
+            "ms_per_position": ms / n, "logits_vs_forward_bf16": bf16,
+            "bf16_within_path_tol": bf16_within,
+            "chunked_forward_vs_kernel_forward_bf16": rounding,
+            "prefill_vs_chunked_forward_bf16": logits_diff(
+                "vlm prefill vs chunked", got, chunked),
+            "f32": {"forward_launches_by_variant": fwd32,
+                    "prefill_ms": ms32, "logits_vs_forward": f32_diff},
+            "tol": PATH_TOL}
+    print(json.dumps(line))
+    return line
+
+
+def phase_small_dense() -> None:
+    """The reduced llama3.2-1b, chatglm3-6b (q/k/v biases drawn non-zero)
+    and internvl2-1b in f32: the prefill step's forward, a 4-token
+    prefill (after the 16 patches for internvl2) and 4 teacher-forced
+    decode steps on the card (the kernel's f32 path) and on the CPU (its
+    plain version), logits within 3e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    tol = ATTN_TOL[torch.float32]
+    for arch in ("llama3.2-1b", "chatglm3-6b", "internvl2-1b"):
+        model = build_model(get_config(arch).reduced())
+        cpu = model.init(seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(4)
+        attn = cpu["layers"]["attn"]
+        for name in ("bq", "bk", "bv"):
+            if name in attn:
+                attn[name] = torch.randn(attn[name].shape, generator=gen)
+        card = tree_map(lambda t: t.cuda(), cpu)
+        batch = make_pipeline(model.cfg, 2, 16).batch_at(0)
+        outs = []
+        with torch.no_grad():
+            for dev, params in (("cuda", card), ("cpu", cpu)):
+                b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                fe = b.get("frontend")
+                h = model.forward(params, b, attn_impl="kernel")
+                logits = [model.head(params, h[:, -1])]
+                n = (fe.shape[1] if fe is not None else 0) + 8
+                cache = model.init_cache(2, n, device=dev)
+                lg, cache = model.prefill(params, cache, b["tokens"][:, :4],
+                                          embeds=fe, attn_impl="kernel")
+                logits.append(lg)
+                for i in range(4, 8):
+                    lg, cache = model.decode_step(
+                        params, cache, b["tokens"][:, i:i + 1],
+                        attn_impl="kernel")
+                    logits.append(lg)
+                outs.append([x.cpu() for x in logits])
+        worst = 0.0
+        for i, (a, c) in enumerate(zip(*outs)):
+            err = (a - c).abs().max().item()
+            worst = max(worst, err)
+            if not torch.allclose(a, c, **tol):
+                fail(f"small dense {arch}: logits {i} card vs cpu max abs "
+                     f"err {err}")
+        print(json.dumps({"phase": "small_dense", "arch": arch,
+                          "steps": len(outs[0]), "max_abs_err": worst,
+                          "tol": tol}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3476,7 +3850,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     skern = clock("ssd_kernel", phase_ssd_kernel, K, ops)
     torch.cuda.empty_cache()
-    path = clock("path", phase_path, train, D, comm)
+    path = clock("path", phase_path, train, D, comm, "transformer-big",
+                 (("dense_reduce", 3), ("sparse_gather", 1)), "path")
     codec = clock("codec", phase_codec_path, train, D, Q, comm, path)
     torch.cuda.empty_cache()
     overlap = clock("overlap", phase_overlap, train, D, Q, comm)
@@ -3493,12 +3868,36 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     hybrid = build_model(get_config("zamba2-7b"))
-    params = clock("hybrid_init", phase_hybrid_init, hybrid)
+    params = clock("hybrid_init", phase_init, hybrid)
     hpre = clock("hybrid_prefill", phase_hybrid_prefill, hybrid, params, K,
                  FA)
     clock("hybrid_decode", phase_hybrid_decode, hybrid, params, K, FA)
     clock("hybrid_serve", phase_hybrid_serve, hybrid, params, K, FA)
-    clock("hybrid_f32", phase_hybrid_f32, hybrid, params, K, FA)
+    clock("hybrid_f32", phase_f32_prefill, hybrid, params, K, FA,
+          "hybrid_f32")
+    del params
+    torch.cuda.empty_cache()
+    dense_path = clock("dense_path", phase_path, train, D, comm,
+                       "llama3.2-1b", (("dense_reduce", 3),
+                                       ("sparse_gather", 1)), "dense_path")
+    seamless_path = clock("seamless_path", phase_path, train, D, comm,
+                          "seamless-m4t-large-v2", (("dense_reduce", 2),),
+                          "seamless_path")
+    torch.cuda.empty_cache()
+    glm = build_model(get_config("chatglm3-6b"))
+    params = clock("dense_init", phase_init, glm)
+    dpre = clock("dense_prefill", phase_prefill, glm, params, FA,
+                 "dense_prefill")
+    clock("dense_f32", phase_f32_prefill, glm, params, K, FA, "dense_f32")
+    clock("dense_serve", phase_serve, glm, params, FA, "dense_serve")
+    del params
+    torch.cuda.empty_cache()
+    vlm = build_model(get_config("internvl2-1b"))
+    params = clock("vlm_init", phase_init, vlm)
+    vpre = clock("vlm_prefill", phase_prefill, vlm, params, FA,
+                 "vlm_prefill")
+    clock("vlm_f32", phase_f32_prefill, vlm, params, K, FA, "vlm_f32")
+    clock("vlm_embeds", phase_vlm_embeds, vlm, params, FA)
     del params
     torch.cuda.empty_cache()
     clock("small", phase_small_reference, train)
@@ -3506,25 +3905,36 @@ def main() -> int:
     clock("small_zero1", phase_small_zero1, train)
     clock("small_forward", phase_small_forward)
     clock("small_hybrid", phase_small_hybrid, K)
+    clock("small_dense", phase_small_dense)
     print(json.dumps({"kernels": [{
         "name": "densify", "route": "cuda",
         "source": "src/repro_torch/csrc/densify.cu",
         "replaces": "src/repro/kernels/densify.py:40",
         "launches": path["densify_launches"] + codec["densify_launches"]
         + overlap["launches"]["densify"] + backends["launches"]["densify"]
-        + zero1["launches"]["densify"],
+        + zero1["launches"]["densify"] + dense_path["densify_launches"]
+        + seamless_path["densify_launches"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
                               "backends": backends["launches"]["densify"],
-                              "zero1": zero1["launches"]["densify"]},
+                              "zero1": zero1["launches"]["densify"],
+                              "dense_path": dense_path["densify_launches"],
+                              "seamless_path":
+                                  seamless_path["densify_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
         "f32": {k: kern["f32"][k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}}, {
+            "library_ms")},
+        # the counts spilled to the workspace (vocab > 51,199)
+        **{f"vocab_{kern['vocabs'][c]['shape']['vocab']}": {
+            k: kern["vocabs"][c][k] for k in (
+                "kernel_ms", "group_rows_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+           for c in ("llama3.2-1b_bf16", "seamless-m4t-large-v2_bf16")}}, {
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:29",
@@ -3582,14 +3992,22 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": prefill["launches"] + trans["launches"]
-        + hpre["flash_launches_per_forward"],
+        + hpre["flash_launches_per_forward"] + dpre["launches"]
+        + vpre["launches"],
         "sources": ["src/repro_torch/csrc/flash_attention_sm90.cu",
                     "src/repro_torch/csrc/flash_attention.cu"],
         "launches_by_variant": {
             k: prefill["launches_by_variant"][k]
             + trans["launches_by_variant"][k]
             + hpre["flash_launches_by_variant"][k]
+            + dpre["launches_by_variant"][k]
+            + vpre["launches_by_variant"][k]
             for k in prefill["launches_by_variant"]},
+        "launches_by_phase": {
+            "prefill": prefill["launches"], "translate": trans["launches"],
+            "hybrid_prefill": hpre["flash_launches_per_forward"],
+            "dense_prefill": dpre["launches"],
+            "vlm_prefill": vpre["launches"]},
         "max_abs_err": akern["max_abs_err"],
         "ms": akern["prefill_self"]["kernel_ms"],
         "mma_ms": akern["prefill_self"]["mma_ms"],
@@ -3600,6 +4018,12 @@ def main() -> int:
         "d112": {k: akern["hybrid_self"][k] for k in (
             "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        "d128": {k: akern["dense_d128_self"][k] for k in (
+            "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_kv")},
+        "gqa7_d64": {k: akern["vlm_gqa7_self"][k] for k in (
+            "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_kv")},
         "cross": {k: akern["prefill_cross"][k] for k in (
             "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {

@@ -32,7 +32,8 @@ class FrontendConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                # this port: audio (enc-dec) | hybrid
+    family: str                # this port: audio (enc-dec) | dense |
+                               # hybrid | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,8 +43,9 @@ class ArchConfig:
     source: str = ""           # citation
     head_dim: Optional[int] = None
     tied_embeddings: bool = False
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
-    rope_fraction: float = 1.0
+    rope_fraction: float = 1.0   # chatglm applies RoPE to half the head dim
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     sliding_window: Optional[int] = None
@@ -83,7 +85,9 @@ class ArchConfig:
         return self.with_(**kw)
 
 
-ARCH_IDS = ("zamba2-7b", "transformer-big")
+ARCH_IDS = ("zamba2-7b", "seamless-m4t-large-v2", "qwen2.5-32b",
+            "deepseek-7b", "llama3.2-1b", "internvl2-1b", "chatglm3-6b",
+            "transformer-big")
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -49,6 +49,7 @@ from repro_torch.kernels.ssd import ssd_kernel, ssd_plain
 
 ATTN_IMPLS = ("ref", "chunked", "kernel")
 SSD_IMPLS = ("ref", "kernel")
+SCORE_BLOCK_ELEMS = 1 << 28     # f32 scores of one chunked_attention block
 
 
 def densify(indices: torch.Tensor, values: torch.Tensor,
@@ -170,10 +171,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Scale ``D**-0.5`` applied to q; query i sits at position
     ``i + Sk - Sq``; causal keeps keys at or before it, ``window`` keeps
     the last ``window`` of those.  Running ``(acc, m, l)`` with ``l``
-    clamped at 1e-30."""
+    clamped at 1e-30.
+
+    The query rows run in blocks sized so that one f32 score block holds
+    at most ``SCORE_BLOCK_ELEMS`` elements (one block at training and
+    test sizes; 2048 rows at 32 heads and 32768 tokens, where the whole
+    block would take 17 GB), and a causal block skips the kv chunks that
+    start after its last query.  Neither changes a row's result: rows
+    are independent, and a chunk with every key masked leaves ``(acc, m,
+    l)`` as they were (alpha 1, p 0)."""
     b, sq, h, d = q.shape
     k, v = _expand_kv(k, h), _expand_kv(v, h)
-    dv = v.shape[-1]
     sk = k.shape[1]
     block_k = min(block_k, _round_up(sk, 8))
     nchunks = -(-sk // block_k)
@@ -181,16 +189,37 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kp = F.pad(k, (0, 0, 0, 0, 0, pad))
     vp = F.pad(v, (0, 0, 0, 0, 0, pad))
     qf = q.to(torch.float32) * d ** -0.5
-    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
-    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    block_q = max(1, SCORE_BLOCK_ELEMS // (b * h * block_k))
+    outs = []
+    for q0 in range(0, sq, block_q):
+        q_pos = torch.arange(q0, min(q0 + block_q, sq),
+                             device=q.device) + (sk - sq)
+        last = q0 + len(q_pos) - 1 + sk - sq
+        n = min(nchunks, last // block_k + 1) if causal else nchunks
+        outs.append(_chunked_rows(qf[:, q0:q0 + block_q], kp, vp, q_pos,
+                                  sk, block_k, max(n, 1), causal, window))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _chunked_rows(qf, kp, vp, q_pos, sk, block_k, nchunks, causal,
+                  window) -> torch.Tensor:
+    """``chunked_attention``'s online softmax for the query rows ``qf``
+    (B, rows, H, D), scaled f32, at positions ``q_pos``, over the first
+    ``nchunks`` chunks of the padded ``kp``/``vp``: (B, H, rows, Dv) in
+    f32."""
+    b, sq, h, _ = qf.shape
+    dv = vp.shape[-1]
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=qf.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                   device=qf.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=qf.device)
     for ci in range(nchunks):
         sl = slice(ci * block_k, (ci + 1) * block_k)
         kb = kp[:, sl].to(torch.float32)
         vb = vp[:, sl].to(torch.float32)
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
-        k_pos = ci * block_k + torch.arange(block_k, device=q.device)
+        k_pos = ci * block_k + torch.arange(block_k, device=qf.device)
         mask = (k_pos[None, :] < sk).expand(sq, block_k)
         if causal:
             mask = mask & (q_pos[:, None] >= k_pos[None, :])
@@ -204,8 +233,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -92,10 +92,15 @@ def init_attention(gen, cfg: ArchConfig, device) -> Params:
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     dt = _dtype(cfg)
-    return {"wq": dense_init(gen, (d, h * hd), device, dtype=dt),
-            "wk": dense_init(gen, (d, kv * hd), device, dtype=dt),
-            "wv": dense_init(gen, (d, kv * hd), device, dtype=dt),
-            "wo": dense_init(gen, (h * hd, d), device, dtype=dt)}
+    p = {"wq": dense_init(gen, (d, h * hd), device, dtype=dt),
+         "wk": dense_init(gen, (d, kv * hd), device, dtype=dt),
+         "wv": dense_init(gen, (d, kv * hd), device, dtype=dt),
+         "wo": dense_init(gen, (h * hd, d), device, dtype=dt)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((kv * hd,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((kv * hd,), dtype=dt, device=device)
+    return p
 
 
 def attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -103,7 +108,8 @@ def attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
               kv_cache: Optional[Dict[str, Any]] = None,
               window: Optional[int] = None, attn_impl: str = "chunked"
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Self-attention with GQA, RoPE and an optional KV cache.
+    """Self-attention with GQA, RoPE and an optional KV cache; with
+    ``cfg.qkv_bias`` the projections add ``bq``, ``bk``, ``bv``.
 
     Without a cache: causal attention over x (training, prefill) through
     ``ops.flash_attention(impl=attn_impl)``.  With one: x holds the new
@@ -114,9 +120,12 @@ def attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     (default: ``window is not None``)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     new_cache = None

@@ -1,11 +1,15 @@
 """Model assembly for the ported families (``repro.models.model``):
 
   audio   enc-dec decoder with cross-attention to encoder-state
-          embeddings (the paper's transformer-big)
+          embeddings (the paper's transformer-big, seamless-m4t)
+  dense   llama/qwen/chatglm/deepseek-7b style decoder (GQA, SwiGLU,
+          optional q/k/v biases)
   hybrid  Zamba2: a Mamba2 stack with ONE shared attention block applied
           after every ``attn_every`` Mamba2 blocks (training through the
           differentiable ``ssd_chunked``, as the reference trains it; the
           SSD kernels serve the forward path only)
+  vlm     dense decoder consuming [patch embeddings ; token embeddings]:
+          the vision prefix without cross-attention (internvl2)
 
 Training runs ``loss``/``forward``; the prefill step runs ``forward``
 and ``head`` on the last position; serving runs ``init_cache``,
@@ -31,7 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.tree import tree_flatten, tree_unflatten
 
-FAMILIES = ("audio", "hybrid")
+FAMILIES = ("audio", "dense", "hybrid", "vlm")
 
 Params = Dict[str, Any]
 
@@ -104,7 +108,7 @@ class Model:
 
     def __post_init__(self):
         if self.cfg.family not in FAMILIES:
-            raise ValueError(f"the port models the {' and '.join(FAMILIES)} "
+            raise ValueError(f"the port models the {', '.join(FAMILIES)} "
                              f"families, got {self.cfg.family!r}")
 
     def init(self, seed: int = 0, device="cuda") -> Params:
@@ -162,7 +166,9 @@ class Model:
                 taps: Optional[torch.Tensor] = None,
                 window: Optional[int] = None,
                 attn_impl: str = "chunked") -> torch.Tensor:
-        """Final hidden states (B, S, d) at the token positions.
+        """Final hidden states (B, S, d) at the token positions: a vlm
+        prefix (``batch["frontend"]``, B x P x d) runs ahead of the tokens
+        and its positions are dropped after the final norm.
         ``attn_impl`` as in ``repro_torch.kernels.ops``: "chunked"
         (training, differentiable), "kernel" (the flash attention kernel,
         forward only: the prefill step) or "ref".  In the hybrid family
@@ -170,18 +176,24 @@ class Model:
         SSD kernel, the others through the plain ``ssd_chunked``."""
         cfg = self.cfg
         x = L.embed(params["embedding"], batch["tokens"], tap=taps)
+        enc, n_prefix = None, 0
+        if cfg.frontend is not None:
+            fe = batch["frontend"].to(x.dtype)
+            if cfg.frontend.cross_attention:
+                enc = fe
+            else:                                   # vlm prefix
+                n_prefix = fe.shape[1]
+                x = torch.cat([fe, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         if cfg.family == "hybrid":
             x = self._hybrid_forward(params, x, positions, window,
                                      attn_impl)
         else:
-            enc = None
-            if cfg.frontend is not None:
-                enc = batch["frontend"].to(x.dtype)
             for lp in _unstack(params["layers"]):
                 x, _ = _block(lp, cfg, x, positions, None, enc, window,
                               attn_impl)
-        return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return x[:, n_prefix:] if n_prefix else x
 
     def _segments(self):
         """Mamba2 layer ids of each segment that ends in the shared
@@ -242,9 +254,9 @@ class Model:
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, cache_len: int, device="cuda") -> Dict:
-        """Zeros cache with "length": (B,) int32.  Audio: {"k", "v":
-        (n_layers, B, cache_len, KV, HD)} in the model's dtype.  Hybrid:
-        "mamba", each Mamba2 block's recurrent cache stacked over
+        """Zeros cache with "length": (B,) int32.  Audio, dense and vlm:
+        {"k", "v": (n_layers, B, cache_len, KV, HD)} in the model's dtype.
+        Hybrid: "mamba", each Mamba2 block's recurrent cache stacked over
         n_layers (``ssm.mamba2_init_cache``), and "attn": {"k", "v":
         (n_segments, B, cache_len, KV, HD)}, one per use of the shared
         block.  ``cache_len`` is the longest sequence (full cache) or the
@@ -269,12 +281,20 @@ class Model:
 
     def prefill(self, params: Params, cache: Dict, tokens: torch.Tensor,
                 enc: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
                 window: Optional[int] = None, attn_impl: str = "chunked",
                 ring: bool = False) -> Tuple[torch.Tensor, Dict]:
         """Sequential prefill: feed ``tokens`` (B, S) one position at a
         time through ``decode_step``; returns (last logits (B, vocab),
-        cache)."""
+        cache).  ``embeds`` (B, P, d), if given, are consumed first, one
+        position at a time (the vlm patch prefix)."""
         logits = None
+        if embeds is not None:
+            for i in range(embeds.shape[1]):
+                logits, cache = self.decode_step(
+                    params, cache, None, enc=enc, window=window,
+                    attn_impl=attn_impl, ring=ring,
+                    input_embeds=embeds[:, i:i + 1])
         for i in range(tokens.shape[1]):
             logits, cache = self.decode_step(
                 params, cache, tokens[:, i:i + 1], enc=enc, window=window,
@@ -282,16 +302,20 @@ class Model:
         return logits, cache
 
     def decode_step(self, params: Params, cache: Dict,
-                    tokens: torch.Tensor,
+                    tokens: Optional[torch.Tensor],
                     enc: Optional[torch.Tensor] = None,
                     window: Optional[int] = None,
                     attn_impl: str = "chunked", ring: bool = False,
-                    n_valid: Optional[torch.Tensor] = None
+                    n_valid: Optional[torch.Tensor] = None,
+                    input_embeds: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         """One decode step: tokens (B, 1) -> logits (B, vocab) and the
         new cache.  ``enc`` (B, F, d) are the encoder states that every
         layer cross-attends (through ``attn_impl``); the cached
-        self-attention is ``decode_attention``.
+        self-attention is ``decode_attention``.  ``input_embeds`` (B, s,
+        d) bypasses the token embedding (the vlm patch positions, cast to
+        the model's dtype as ``forward`` casts the prefix; ``tokens`` may
+        then be None).
 
         Chunked prefill: tokens (B, s) with s > 1 run all s positions in
         one step (non-ring caches; the per-row causal mask keeps it
@@ -299,7 +323,10 @@ class Model:
         (B,), when given, is the count of real tokens per slot: the cache
         length advances by it instead of s."""
         cfg = self.cfg
-        x = L.embed(params["embedding"], tokens)
+        if input_embeds is not None:
+            x = input_embeds.to(L._dtype(cfg))
+        else:
+            x = L.embed(params["embedding"], tokens)
         s = x.shape[1]
         length = cache["length"]
         positions = length[:, None] + torch.arange(s, device=x.device)

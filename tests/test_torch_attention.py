@@ -129,6 +129,22 @@ def test_plain_impls_match_reference(impl, jimpl, b, sq, sk, h, hkv, d,
     np.testing.assert_allclose(_np(out), _np(want), **F32)
 
 
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,window,causal", CASES)
+def test_chunked_query_blocks_match_reference(monkeypatch, rows, b, sq, sk,
+                                              h, hkv, d, window, causal):
+    """Query rows in blocks of ``rows`` (the score budget set small), the
+    causal blocks skipping the kv chunks after their last query: the
+    reference's chunked attention all the same."""
+    monkeypatch.setattr(ops, "SCORE_BLOCK_ELEMS", b * h * 8 * rows)
+    (jq, jk, jv), (q, k, v) = _qkv(b * 77 + sq, b, sq, sk, h, hkv, d)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              impl="chunked", block_k=8)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                impl="xla_chunked", block_k=8)
+    np.testing.assert_allclose(_np(out), _np(want), **F32)
+
+
 def test_attention_ref_zeroes_fully_masked_rows():
     (jq, jk, jv), (q, k, v) = _qkv(3, 1, 12, 8, 2, 2, 16)
     out = ref.attention_ref(q, k, v, causal=True)
