@@ -24,8 +24,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                tokens at (vocab, d_model), llama3.2-1b's also in f32, and
                vocab 51,199 against 51,200, each bitwise equal to the
                plain version and across two launches; the bf16 shapes of
-               llama3.2-1b (128256 x 2048) and seamless-m4t-large-v2
-               (256206 x 1024) timed with each kernel's own device time;
+               llama3.2-1b (128256 x 2048), seamless-m4t-large-v2
+               (256206 x 1024) and llama4-scout-17b-a16e (2048 x 5120 ->
+               202048 x 5120) timed with each kernel's own device time;
      int8_wire_kernel — the int8 wire's fused kernels: the error-feedback
                encode (bf16 leaf and f32 residual in, q, scale and the
                residual updated in place) bitwise against
@@ -56,9 +57,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
                and zamba2-7b's head dim 112: causal and window-8192
                (1 x 32768 x 32 x 112, bf16) and small f32 and bf16 cases;
                chatglm3-6b's head dim 128 with 2 kv heads (causal 1 x
-               32768 x 32 x 128, GQA 16) and internvl2-1b's GQA 7 (causal
-               1 x 33024 x 14 x 64, 256 patches + 32768 tokens), timed
-               beside SDPA on kv expanded to the query heads;
+               32768 x 32 x 128, GQA 16), internvl2-1b's GQA 7 (causal
+               1 x 33024 x 14 x 64, 256 patches + 32768 tokens) and
+               llama4-scout-17b-a16e's GQA 5 (causal 1 x 32768 x 40 x
+               128 on 8 kv heads), timed beside SDPA on kv expanded to
+               the query heads;
                every case names the variant that ran, the prefill kernel
                ("sm90") must take the path's bf16 shapes and its own edge
                cases (Sq not a multiple of 128, kv_len < Sk, GQA 4, head
@@ -150,7 +153,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                state_dtype)``; each prints its step ms, device busy ms
                of one more step (CUDA-only ``torch.profiler``), training
                state bytes and ``max_memory_allocated``;
-  6. prefill — full-width transformer-big's prefill step on one
+  6. prefill — full-width transformer-big (weights drawn on the card,
+               init time) and its prefill step on one
                32768-token sequence with 256 encoder states:
                ``forward(attn_impl="kernel")`` and ``head`` on the last
                position, 12 kernel launches a forward, all 12 on the
@@ -165,8 +169,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
   8. serve   — ``ServeEngine.generate`` on 8 prompts of 64 tokens, 32 new
                tokens (no encoder states, so no launch); shape and EOS
                masking;
-  9. hybrid  — full-width zamba2-7b in bf16 (weights from seed 0, init
-               time and memory): the prefill step on one 32768-token
+  9. hybrid  — full-width zamba2-7b in bf16 (weights from seed 0 drawn
+               on the card by the card's generator, as every full-width
+               model here; init time and memory): the prefill step on
+               one 32768-token
                sequence, 81 SSD and 13 flash attention launches a forward
                (all 81 on the "sm90" SSD kernel, all 13 on the prefill
                attention kernel);
@@ -199,6 +205,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
                and 16 tokens, its last logits against the forward's at
                ``PATH_TOL`` (in f32; the bf16 difference is reported beside
                the one between the forward's two bf16 paths);
+     moe_init, moe_prefill, moe_decode, moe_serve, moe_f32 —
+               llama4-scout-17b-a16e at full width (d 5120, 40/8 heads of
+               128, 16 experts of 8192 top-1 and one shared, vocab 202048
+               untied), depth cut to 2: 6,473,180,160 parameters drawn on
+               the card; the prefill step on 32768 tokens (2 "sm90"
+               launches, grouped capacity MoE), logits against the plain
+               path at ``PATH_TOL`` with the share of tokens whose expert
+               differs between the paths; 8 requests of a 16-token
+               prefill and 16 greedy steps under ``moe_mode="dropless"``,
+               the same steps under ``"capacity"`` (cap = t = 8: nothing
+               drops) held to them at ``PATH_TOL``, ms a step and idle
+               share; ``ServeEngine.generate`` as serve; the f32 check on
+               4096 tokens;
+     moe_path — the launcher trains the reduced scout (``--reduced``: 4
+               experts, f32) on the card, 3 steps of dense_reduce and 1
+               of sparse_gather: the path phase's checks, and the
+               router's aux loss above 0 in every step;
  10. small   — the reduced transformer-big and zamba2-7b in f32 train 2
                steps each on the card and on the CPU, with the identity
                wire and with ``--codec int8 --error-feedback``, and the
@@ -216,7 +239,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
                reduced zamba2 the same (forward, 4-token prefix, 4 decode
                steps); ``small_dense``: the reduced llama3.2-1b,
                chatglm3-6b (non-zero q/k/v biases) and internvl2-1b the
-               same (its prefill through the 16 patches first).
+               same (its prefill through the 16 patches first);
+               ``small_moe``: the reduced scout the same (forward and its
+               aux loss, a 4-token prefill, two dropless and two
+               capacity decode steps).  Every card run held against a
+               CPU run starts from the CPU's draws copied to the card
+               (``host_weights``, ``host_drawn_init``): the card's
+               generator draws other numbers from the same seed.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -224,6 +253,7 @@ nothing from the network.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -462,7 +492,8 @@ def phase_kernel(D, tokens) -> dict:
 # bf16 case is timed
 VOCAB_CONFIGS = (("llama3.2-1b", True), ("seamless-m4t-large-v2", True),
                  ("chatglm3-6b", False), ("qwen2.5-32b", False),
-                 ("deepseek-7b", False), ("internvl2-1b", False))
+                 ("deepseek-7b", False), ("internvl2-1b", False),
+                 ("llama4-scout-17b-a16e", True))
 SMEM_VOCAB_LIMIT = 51199           # (51199 + 1) * 4 B = 200 KiB
 
 
@@ -473,9 +504,10 @@ def densify_vocab_cases(D, vals) -> dict:
     config's (8 x 256 tokens of its pipeline, d_model) at its vocabulary,
     llama3.2-1b's also on f32 values, and vocab 51,199 (counts in shared
     memory) against 51,200 (spilled) at d 1024.  The bf16 training
-    shapes of llama3.2-1b and seamless-m4t-large-v2 are timed as device
-    time beside ``index_add_`` and the byte bound, with each of the three
-    kernels' own device time."""
+    shapes of llama3.2-1b, seamless-m4t-large-v2 and llama4-scout-17b-a16e
+    (2048 x 5120 -> 202048 x 5120) are timed as device time beside
+    ``index_add_`` and the byte bound, with each of the three kernels'
+    own device time."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     dev = torch.device("cuda")
@@ -588,11 +620,13 @@ def full_width(arch):
     return [arch if a == "transformer-big" else a for a in FULL_WIDTH]
 
 
-def phase_path(train, D, comm, arch, runs, tag) -> dict:
-    """The launcher trains full-width ``arch`` for each (grad_accum,
-    steps) of ``runs`` (identity wire), the counts reset just before a
-    run and read just after: finite losses, a first-step loss within 1.0
-    of ln(vocab) (random weights), densify launched once a step,
+def phase_path(train, D, comm, arch, runs, tag, extra=()) -> dict:
+    """The launcher trains full-width ``arch`` (or as ``extra`` flags
+    say: ``--reduced``) for each (grad_accum, steps) of ``runs``
+    (identity wire), the counts reset just before a run and read just
+    after: finite losses, a first-step loss within 1.0 of ln(vocab)
+    (random weights), the router's aux loss above 0 in every step where
+    the config has experts, densify launched once a step,
     collective calls above 0 and, with both strategies, first-step
     losses within 1e-3 relative (same weights, same batch: the loss
     precedes the exchange).  Each run prints its step ms, tok/s, the
@@ -605,13 +639,16 @@ def phase_path(train, D, comm, arch, runs, tag) -> dict:
     from repro_torch.checkpoint.checkpoint import nbytes
     from repro_torch.configs import get_config
     from repro_torch.optim import zero1 as z1
-    vocab = get_config(arch).vocab
+    cfg = get_config(arch)
+    if "--reduced" in extra:
+        cfg = cfg.reduced()
+    vocab = cfg.vocab
     created = _world_of_one(train)
     launches, first_loss, median_ms, lines = 0, {}, {}, {}
     try:
         for accum, steps in runs:
-            argv = full_width(arch) + ["--grad-accum", accum,
-                                       "--steps", str(steps)]
+            argv = full_width(arch) + list(extra) + [
+                "--grad-accum", accum, "--steps", str(steps)]
             plan, plan_args = exchange_plan(train, argv), \
                 train.parse_args(argv)
             collective = ("all_reduce_dense" if accum == "dense_reduce"
@@ -639,6 +676,9 @@ def phase_path(train, D, comm, arch, runs, tag) -> dict:
             if abs(losses[0] - math.log(vocab)) > 1.0:
                 fail(f"{what}: first-step loss {losses[0]} far from "
                      f"ln({vocab}) = {math.log(vocab)}")
+            aux = [h["aux"] for h in hist]
+            if cfg.moe is not None and not all(a > 0 for a in aux):
+                fail(f"{what}: router aux losses {aux} (want all > 0)")
             state_b = nbytes(result["opt_state"])
             if state_b != z1.optimizer_state_bytes(plan, 1):
                 fail(f"{what}: the optimizer state holds {state_b} B, "
@@ -648,11 +688,12 @@ def phase_path(train, D, comm, arch, runs, tag) -> dict:
             launches += got
             steady = [h["step_ms"] for h in hist[1:]] or [hist[0]["step_ms"]]
             median_ms[accum] = statistics.median(steady)
-            line = {"phase": tag, "arch": arch,
+            line = {"phase": tag, "arch": cfg.name,
                     "grad_accum": accum, "codec": "identity",
                     "steps": steps, "tokens_per_step":
                         plan_args.batch_per_worker * plan_args.seq_len,
-                    "losses": losses, "ln_vocab": math.log(vocab),
+                    "losses": losses, "aux": aux,
+                    "ln_vocab": math.log(vocab),
                     "densify_launches": got, "collective_calls": calls,
                     "step_ms_first": hist[0]["step_ms"],
                     "step_ms_median_after_first": median_ms[accum],
@@ -2417,6 +2458,34 @@ def zero1_bf16_state(train, D, Q, comm, launches) -> dict:
     return out
 
 
+def host_weights(model, seed: int, device):
+    """``model.init(seed)`` drawn on the CPU and copied to ``device``:
+    the card's generator draws other numbers from the same seed, so a
+    card run held against a CPU run starts from these."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device),
+                    model.init(seed=seed, device="cpu"))
+
+
+@contextlib.contextmanager
+def host_drawn_init():
+    """Within the block, ``Model.init`` on the card draws on the CPU and
+    copies (``host_weights``), so the launcher's card runs start from the
+    weights of its CPU runs."""
+    from repro_torch.models.model import Model
+    init = Model.init
+
+    def via_host(self, seed=0, device="cuda"):
+        if torch.device(device).type != "cuda":
+            return init(self, seed=seed, device=device)
+        return host_weights(self, seed, device)
+    Model.init = via_host
+    try:
+        yield
+    finally:
+        Model.init = init
+
+
 def phase_small_zero1(train) -> None:
     """The reduced transformer-big in f32 trains 2 steps on the card and
     on the CPU with ``--zero1 --codec int8 --error-feedback`` and
@@ -2428,8 +2497,9 @@ def phase_small_zero1(train) -> None:
     quiet = lambda s: None
     for flags in (["--codec", "int8", "--error-feedback"],
                   ["--param-codec", "int8"]):
-        card = train.run(base + flags + ["--device", "cuda"],
-                         log=quiet)["history"]
+        with host_drawn_init():
+            card = train.run(base + flags + ["--device", "cuda"],
+                             log=quiet)["history"]
         cpu = train.run(base + flags + ["--device", "cpu"],
                         log=quiet)["history"]
         lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
@@ -2458,8 +2528,9 @@ def phase_small_backends(train) -> None:
             "--steps", "2", "--log-every", "1"]
     quiet = lambda s: None
     for flags in (["--backend", "ringsim"], ["--reduce-scatter"]):
-        card = train.run(base + flags + ["--device", "cuda"],
-                         log=quiet)["history"]
+        with host_drawn_init():
+            card = train.run(base + flags + ["--device", "cuda"],
+                             log=quiet)["history"]
         cpu = train.run(base + flags + ["--device", "cpu"],
                         log=quiet)["history"]
         lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
@@ -2484,7 +2555,7 @@ def phase_small_backends(train) -> None:
             batches = [{k: torch.from_numpy(v).to(device)
                         for k, v in pipe.batch_at(s).items()}
                        for s in range(2)]
-            params = model.init(seed=0, device=device)
+            params = host_weights(model, 0, device)
             ex = opt.init_exchange_state(grad_contributions(
                 model, params, batches[0], sparse_embedding=True)[0])
             opt_state, losses = opt.init(params), []
@@ -2520,8 +2591,9 @@ def phase_small_reference(train) -> None:
         for codec in (["--codec", "identity"],
                       ["--codec", "int8", "--error-feedback"]):
             args = base + ["--arch", arch] + codec
-            card = train.run(args + ["--device", "cuda"],
-                             log=quiet)["history"]
+            with host_drawn_init():
+                card = train.run(args + ["--device", "cuda"],
+                                 log=quiet)["history"]
             cpu = train.run(args + ["--device", "cpu"], log=quiet)["history"]
             lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
             if len(lc) != 2 or not all(math.isclose(x, y, rel_tol=1e-4)
@@ -2556,7 +2628,7 @@ def small_scaled_backward() -> None:
     for codec in ("identity", "int8+ef"):
         losses, mu = {}, {}
         for dev in ("cuda", "cpu"):
-            params = model.init(seed=0, device=dev)
+            params = host_weights(model, 0, dev)
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in np_batch.items()}
             opt = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(
@@ -2719,6 +2791,10 @@ def phase_attn_kernel(FA) -> dict:
         # heads on 2 kv heads (GQA 7)
         ("vlm_gqa7_self", 1, VLM_PATCHES + PREFILL_LEN,
          VLM_PATCHES + PREFILL_LEN, 14, 2, 64, None, True, bf, bf),
+        # llama4-scout-17b-a16e's prefill: head dim 128, 40 query heads
+        # on 8 kv heads (GQA 5)
+        ("moe_gqa5_self", 1, PREFILL_LEN, PREFILL_LEN, 40, 8, 128, None,
+         True, bf, bf),
     ]
     ref_cases = [   # tests/test_kernels.py CASES, in f32 and bf16
         (2, 16, 16, 4, 2, 32, None, True), (1, 64, 64, 2, 2, 64, 16, True),
@@ -2757,7 +2833,8 @@ def phase_attn_kernel(FA) -> dict:
     max_err = 0.0
     tensors = {}
     want_sm90 = {"prefill_self", "prefill_cross", "hybrid_self",
-                 "hybrid_window", "dense_d128_self", "vlm_gqa7_self"}
+                 "hybrid_window", "dense_d128_self", "vlm_gqa7_self",
+                 "moe_gqa5_self"}
     for name, b, sq, sk, h, hkv, d, window, causal, qdt, kvdt in cases:
         q = _randn((b, sq, h, d), qdt, gen)
         k = _randn((b, sk, hkv, d), kvdt, gen)
@@ -3444,7 +3521,13 @@ def phase_prefill(model, params, FA, tag="prefill") -> dict:
     launch on "sm90" (counts reset just before each run, read just
     after); the timed run's logits held against the plain chunked path
     at ``PATH_TOL``; ms, tok/s, peak memory and the top device kernels of
-    one profiled run."""
+    one profiled run.  With experts (llama4-scout-17b-a16e) the line also
+    gives the share of tokens whose expert differs between the two paths
+    in each layer (``recorded_routes``): a near-tied route flips under
+    bf16 rounding and moves that token's hidden state by O(1).  So over
+    ``PATH_TOL`` fails unless the checked (last) token's own expert
+    differs between the paths in some layer; ``phase_f32_prefill`` then
+    holds the paths at the same limit."""
     from repro_torch.data import make_pipeline
     cfg = model.cfg
     batch = make_pipeline(cfg, 1, PREFILL_LEN).batch_at(0)
@@ -3462,7 +3545,8 @@ def phase_prefill(model, params, FA, tag="prefill") -> dict:
                  f"not dropped?)")
         return model.head(params, h[:, -1:])[:, 0]
     with torch.no_grad():
-        prefill_step("kernel")                     # warm-up
+        with recorded_routes() as routes:
+            prefill_step("kernel")                 # warm-up
         torch.cuda.reset_peak_memory_stats()
         runs = []
         for _ in range(3):
@@ -3479,9 +3563,15 @@ def phase_prefill(model, params, FA, tag="prefill") -> dict:
         peak = torch.cuda.max_memory_allocated()
         profiled = top_device_kernels(lambda: prefill_step("kernel"))
         torch.cuda.empty_cache()
-        plain, plain_ms = timed(lambda: prefill_step("chunked"))
+        with recorded_routes() as plain_routes:
+            plain, plain_ms = timed(lambda: prefill_step("chunked"))
         torch.cuda.empty_cache()
-    diff = check_logits(tag, logits, plain)
+    flips = route_flips(routes, plain_routes) if cfg.moe is not None \
+        else None
+    if flips is not None and flips["last_token_flipped"]:
+        diff = logits_diff(tag, logits, plain)
+    else:
+        diff = check_logits(tag, logits, plain)
     ms = statistics.median(runs)
     line = {"phase": tag, "arch": cfg.name, "tokens": PREFILL_LEN,
             "frontend_embeddings": fe.n_embeds if fe is not None else 0,
@@ -3493,8 +3583,42 @@ def phase_prefill(model, params, FA, tag="prefill") -> dict:
             "plain_chunked_ms": plain_ms, "logits_vs_plain": diff,
             "tol": PATH_TOL, "max_memory_allocated": peak,
             "profiled": profiled}
+    if flips is not None:
+        line["routes_vs_plain"] = flips
     print(json.dumps(line))
     return {"launches": launches, **line}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Within the block, every ``moe_ffn`` call appends the top-1 expert
+    id of each of its tokens (argmax of the f32 router logits, the
+    route ``moe_ffn`` takes) to the yielded list, one (B*S,) tensor a
+    call; calls ``moe_ffn`` itself unchanged."""
+    from repro_torch.models import layers as L
+    inner, routes = L.moe_ffn, []
+
+    def moe_ffn(p, cfg, x, *args, **kw):
+        routes.append(torch.argmax(x.reshape(-1, x.shape[-1]).float()
+                                   @ p["router"], dim=-1))
+        return inner(p, cfg, x, *args, **kw)
+    L.moe_ffn = moe_ffn
+    try:
+        yield routes
+    finally:
+        L.moe_ffn = inner
+
+
+def route_flips(a: list, b: list) -> dict:
+    """Share of tokens whose expert differs between two runs' recorded
+    routes, per layer, and whether the last token's differs in any."""
+    if len(a) != len(b) or not a:
+        fail(f"routes: {len(a)} and {len(b)} moe_ffn calls recorded")
+    return {"share_by_layer": [(x != y).float().mean().item()
+                               for x, y in zip(a, b)],
+            "tokens": int(a[0].numel()),
+            "last_token_flipped": any(bool(x[-1] != y[-1])
+                                      for x, y in zip(a, b))}
 
 
 def translate(model, params, prefix, enc, impl, cache_len, n_new,
@@ -3651,15 +3775,17 @@ def phase_small_forward() -> None:
 # ---------------------------------------------------------------------------
 
 # parameters of the configs that phase_init builds at full width
-FULL_PARAMS = {"zamba2-7b": 6_750_840_528, "chatglm3-6b": 6_243_584_000,
-               "internvl2-1b": 493_780_992}
+# (llama4-scout-17b-a16e at depth MOE_DEPTH)
+FULL_PARAMS = {"transformer-big": 160_365_568, "zamba2-7b": 6_750_840_528,
+               "chatglm3-6b": 6_243_584_000, "internvl2-1b": 493_780_992,
+               "llama4-scout-17b-a16e": 6_473_180_160}
 VLM_B, VLM_PROMPT = 2, 16          # requests and tokens of prefill(embeds=)
 
 
 def phase_init(model):
-    """Full-width weights in bf16 from seed 0, drawn on the CPU generator
-    layer by layer into the card; init time, parameter count and
-    memory."""
+    """Full-width weights in bf16 from seed 0, drawn on the card's
+    generator layer by layer into their slots; init time, parameter
+    count and memory."""
     from repro_torch.tree import tree_flatten
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3820,6 +3946,145 @@ def phase_small_dense() -> None:
                           "tol": tol}))
 
 
+# ---------------------------------------------------------------------------
+# the moe family: llama4-scout-17b-a16e at full width, depth cut to 2
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_DEPTH = "llama4-scout-17b-a16e", 2
+MOE_B, MOE_PREFIX, MOE_NEW = 8, 16, 16
+
+
+def phase_moe_decode(model, params, FA) -> dict:
+    """8 requests: a 16-token sequential prefill (dropless, as the
+    reference's ``prefill``), then 16 greedy ``decode_step``s under
+    ``moe_mode="dropless"`` and the same 16 steps teacher-forced on those
+    tokens under ``"capacity"``.  A step has t = 8 tokens, so cap =
+    min(max(8, ceil(4 t k / E)), t) = 8 = t: nothing drops, and the two
+    agree within bf16 rounding.  Every step's logits at ``PATH_TOL`` on
+    the requests whose experts were the same in both modes in that step
+    and every earlier one (``recorded_routes``: a near-tied route flips
+    under a last-bit difference, and the request's logits then part by
+    O(1)); the flipped requests are reported, and all 8 flipped fails.
+    ms a step, device busy and idle share of one step; no kernel launch
+    (cached attention is ``decode_attention``)."""
+    from repro_torch.data import make_pipeline
+    cfg = model.cfg
+    prefix = torch.from_numpy(make_pipeline(
+        cfg, MOE_B, MOE_PREFIX).batch_at(1)["tokens"]).cuda()
+    out, toks = {}, None
+    with torch.no_grad():
+        FA.reset_launches()
+        cache = model.init_cache(MOE_B, MOE_PREFIX + MOE_NEW, device="cuda")
+        (first, start), pre_ms = timed(lambda: model.prefill(params, cache,
+                                                             prefix))
+
+        def steps(mode, stream):
+            logits, c, got, fed = first, start, [], []
+            for i in range(MOE_NEW):
+                tok = (torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                       if stream is None else stream[:, i:i + 1])
+                fed.append(tok)
+                logits, c = model.decode_step(params, c, tok, moe_mode=mode)
+                got.append(logits)
+            return torch.stack(got, 1), torch.cat(fed, 1), c
+
+        for mode in ("dropless", "capacity"):
+            (logits, fed, c), ms = timed(lambda: steps(mode, toks))
+            toks = fed if toks is None else toks
+            with recorded_routes() as routes:
+                steps(mode, toks)
+            tok = toks[:, -1:]
+            busy = top_device_kernels(lambda: model.decode_step(
+                params, c, tok, moe_mode=mode))
+            _, one_ms = timed(lambda: model.decode_step(params, c, tok,
+                                                        moe_mode=mode))
+            if tuple(logits.shape) != (MOE_B, MOE_NEW, cfg.vocab) \
+                    or not torch.isfinite(logits).all() \
+                    or int(c["length"][0]) != MOE_PREFIX + MOE_NEW:
+                fail(f"moe decode {mode}: logits {tuple(logits.shape)}, "
+                     f"lengths {c['length'].tolist()}")
+            out[mode] = {"logits": logits, "decode_ms_per_step": ms / MOE_NEW,
+                         "routes": torch.stack(routes).view(
+                             MOE_NEW, cfg.n_layers, MOE_B),
+                         "one_step_ms": one_ms,
+                         "device_busy_ms": busy["device_busy_ms"],
+                         "idle_share": 1 - busy["device_busy_ms"] / one_ms,
+                         "top": busy["top"][:4]}
+        launches = FA.flash_attention_kernel.launches
+    if launches != 0:
+        fail(f"moe decode: {launches} flash attention launches (want 0)")
+    # a request flipped at step i stays parted: its cache carries it
+    flipped = torch.cumsum((out["dropless"]["routes"]
+                            != out["capacity"]["routes"]).any(dim=1).int(),
+                           dim=0) > 0                       # (steps, B)
+    if bool(flipped[-1].all()):
+        fail("moe decode: every request's experts differ between dropless "
+             "and capacity")
+    worst = {"max_abs": 0.0, "rel_l2": 0.0}
+    for i in range(MOE_NEW):
+        keep = ~flipped[i]
+        d = check_logits(f"moe decode capacity vs dropless, step {i}",
+                         out["capacity"]["logits"][keep, i],
+                         out["dropless"]["logits"][keep, i])
+        worst = {k: max(worst[k], d[k]) for k in worst}
+    line = {"phase": "moe_decode", "arch": cfg.name, "depth": cfg.n_layers,
+            "requests": MOE_B, "prefix": MOE_PREFIX, "new_tokens": MOE_NEW,
+            "launches": launches, "prefill_ms": pre_ms,
+            **{mode: {k: v for k, v in o.items()
+                      if k not in ("logits", "routes")}
+               for mode, o in out.items()},
+            "capacity_vs_dropless_worst": worst, "tol": PATH_TOL,
+            "requests_with_a_flipped_route": int(flipped[-1].sum()),
+            "first_row_tokens": toks[0].tolist()}
+    print(json.dumps(line))
+    return line
+
+
+def phase_small_moe(FA) -> None:
+    """The reduced llama4-scout-17b-a16e in f32 (4 experts, top-1, one
+    shared): the prefill step's forward (last logits and the aux loss),
+    a 4-token prefill and 4 teacher-forced decode steps (two dropless,
+    two capacity) on the card (the kernel's f32 path) and on the CPU (its
+    plain version), from the CPU's weights, within 3e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    model = build_model(get_config(MOE_ARCH).reduced())
+    batch = make_pipeline(model.cfg, 2, 16).batch_at(0)
+    tol = ATTN_TOL[torch.float32]
+    outs = []
+    with torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            params = host_weights(model, 0, dev)
+            t = torch.from_numpy(batch["tokens"]).to(dev)
+            FA.reset_launches()
+            h, aux = model.forward_aux(params, {"tokens": t},
+                                       attn_impl="kernel")
+            if dev == "cuda" and FA.flash_attention_kernel.launches \
+                    != model.cfg.n_layers:
+                fail(f"small moe: {FA.flash_attention_kernel.launches} "
+                     f"flash launches (want {model.cfg.n_layers})")
+            logits = [model.head(params, h[:, -1]), aux[None]]
+            cache = model.init_cache(2, 8, device=dev)
+            lg, cache = model.prefill(params, cache, t[:, :4])
+            logits.append(lg)
+            for i, mode in zip(range(4, 8), ("dropless", "dropless",
+                                             "capacity", "capacity")):
+                lg, cache = model.decode_step(params, cache, t[:, i:i + 1],
+                                              moe_mode=mode)
+                logits.append(lg)
+            outs.append([x.cpu() for x in logits])
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(*outs)):
+        err = (a - c).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, c, **tol):
+            fail(f"small moe: output {i} card vs cpu max abs err {err}")
+    print(json.dumps({"phase": "small_moe", "outputs": len(outs[0]),
+                      "aux_card": outs[0][1].item(),
+                      "max_abs_err": worst, "tol": tol}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3861,7 +4126,7 @@ def main() -> int:
     zero1 = clock("zero1", phase_zero1, train, D, Q, comm, ops)
     torch.cuda.empty_cache()
     model = build_model(get_config("transformer-big"))
-    params = model.init(seed=0, device="cuda")
+    params = clock("init", phase_init, model)
     prefill = clock("prefill", phase_prefill, model, params, FA)
     trans = clock("translate", phase_translate, model, params, FA)
     clock("serve", phase_serve, model, params, FA)
@@ -3900,12 +4165,25 @@ def main() -> int:
     clock("vlm_embeds", phase_vlm_embeds, vlm, params, FA)
     del params
     torch.cuda.empty_cache()
+    scout = build_model(get_config(MOE_ARCH).with_(n_layers=MOE_DEPTH))
+    params = clock("moe_init", phase_init, scout)
+    mpre = clock("moe_prefill", phase_prefill, scout, params, FA,
+                 "moe_prefill")
+    clock("moe_decode", phase_moe_decode, scout, params, FA)
+    clock("moe_serve", phase_serve, scout, params, FA, "moe_serve")
+    clock("moe_f32", phase_f32_prefill, scout, params, K, FA, "moe_f32")
+    del params
+    torch.cuda.empty_cache()
+    moe_path = clock("moe_path", phase_path, train, D, comm, MOE_ARCH,
+                     (("dense_reduce", 3), ("sparse_gather", 1)), "moe_path",
+                     ("--reduced",))
     clock("small", phase_small_reference, train)
     clock("small_backends", phase_small_backends, train)
     clock("small_zero1", phase_small_zero1, train)
     clock("small_forward", phase_small_forward)
     clock("small_hybrid", phase_small_hybrid, K)
     clock("small_dense", phase_small_dense)
+    clock("small_moe", phase_small_moe, FA)
     print(json.dumps({"kernels": [{
         "name": "densify", "route": "cuda",
         "source": "src/repro_torch/csrc/densify.cu",
@@ -3913,7 +4191,7 @@ def main() -> int:
         "launches": path["densify_launches"] + codec["densify_launches"]
         + overlap["launches"]["densify"] + backends["launches"]["densify"]
         + zero1["launches"]["densify"] + dense_path["densify_launches"]
-        + seamless_path["densify_launches"],
+        + seamless_path["densify_launches"] + moe_path["densify_launches"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
@@ -3921,7 +4199,8 @@ def main() -> int:
                               "zero1": zero1["launches"]["densify"],
                               "dense_path": dense_path["densify_launches"],
                               "seamless_path":
-                                  seamless_path["densify_launches"]},
+                                  seamless_path["densify_launches"],
+                              "moe_path": moe_path["densify_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -3934,7 +4213,8 @@ def main() -> int:
             k: kern["vocabs"][c][k] for k in (
                 "kernel_ms", "group_rows_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")}
-           for c in ("llama3.2-1b_bf16", "seamless-m4t-large-v2_bf16")}}, {
+           for c in ("llama3.2-1b_bf16", "seamless-m4t-large-v2_bf16",
+                     "llama4-scout-17b-a16e_bf16")}}, {
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:29",
@@ -3993,7 +4273,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": prefill["launches"] + trans["launches"]
         + hpre["flash_launches_per_forward"] + dpre["launches"]
-        + vpre["launches"],
+        + vpre["launches"] + mpre["launches"],
         "sources": ["src/repro_torch/csrc/flash_attention_sm90.cu",
                     "src/repro_torch/csrc/flash_attention.cu"],
         "launches_by_variant": {
@@ -4002,12 +4282,14 @@ def main() -> int:
             + hpre["flash_launches_by_variant"][k]
             + dpre["launches_by_variant"][k]
             + vpre["launches_by_variant"][k]
+            + mpre["launches_by_variant"][k]
             for k in prefill["launches_by_variant"]},
         "launches_by_phase": {
             "prefill": prefill["launches"], "translate": trans["launches"],
             "hybrid_prefill": hpre["flash_launches_per_forward"],
             "dense_prefill": dpre["launches"],
-            "vlm_prefill": vpre["launches"]},
+            "vlm_prefill": vpre["launches"],
+            "moe_prefill": mpre["launches"]},
         "max_abs_err": akern["max_abs_err"],
         "ms": akern["prefill_self"]["kernel_ms"],
         "mma_ms": akern["prefill_self"]["mma_ms"],
@@ -4022,6 +4304,9 @@ def main() -> int:
             "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_kv")},
         "gqa7_d64": {k: akern["vlm_gqa7_self"][k] for k in (
+            "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_kv")},
+        "gqa5_d128": {k: akern["moe_gqa5_self"][k] for k in (
             "kernel_ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_kv")},
         "cross": {k: akern["prefill_cross"][k] for k in (

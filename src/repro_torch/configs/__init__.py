@@ -1,2 +1,2 @@
 from repro_torch.configs.base import (ARCH_IDS, ArchConfig, FrontendConfig,
-                                      SSMConfig, get_config)
+                                      MoEConfig, SSMConfig, get_config)

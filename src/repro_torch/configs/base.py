@@ -3,14 +3,24 @@
 Mirrors ``repro.configs.base`` for the fields the ported model path
 reads.  ``reduced()`` derives the CPU test variant exactly as the
 reference does (<=2 layers, or 4 with ``attn_every`` 2 for the hybrid
-family; d_model<=128, vocab<=512, float32), so both packages build the
-same shapes from the same config.
+family; d_model<=128, vocab<=512, float32; 4 experts of 64 for the moe
+family), so both packages build the same shapes from the same config.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0          # shared (always-on) experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +43,7 @@ class FrontendConfig:
 class ArchConfig:
     name: str
     family: str                # this port: audio (enc-dec) | dense |
-                               # hybrid | vlm
+                               # hybrid | moe | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +60,7 @@ class ArchConfig:
     dtype: str = "bfloat16"
     sliding_window: Optional[int] = None
     attn_every: Optional[int] = None       # hybrid: shared attn block period
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     frontend: Optional[FrontendConfig] = None
 
@@ -77,6 +88,10 @@ class ArchConfig:
             dtype="float32",
             attn_every=2 if self.attn_every is not None else None,
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
+                d_ff_expert=64, n_shared=min(self.moe.n_shared, 1))
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, state_dim=16,
                                             head_dim=16, chunk=32)
@@ -86,8 +101,8 @@ class ArchConfig:
 
 
 ARCH_IDS = ("zamba2-7b", "seamless-m4t-large-v2", "qwen2.5-32b",
-            "deepseek-7b", "llama3.2-1b", "internvl2-1b", "chatglm3-6b",
-            "transformer-big")
+            "deepseek-7b", "llama3.2-1b", "llama4-scout-17b-a16e",
+            "internvl2-1b", "chatglm3-6b", "transformer-big")
 
 
 def get_config(arch_id: str) -> ArchConfig:

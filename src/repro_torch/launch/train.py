@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import sys
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -144,12 +143,6 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def init_distributed(device: torch.device) -> Tuple[int, int, bool]:
     """Join (or start) the data-parallel process group.  Returns ``(rank,
     world, created)``; ``created`` says this call started the group and
@@ -160,9 +153,10 @@ def init_distributed(device: torch.device) -> Tuple[int, int, bool]:
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://")
     else:
-        dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{_free_port()}",
-            rank=0, world_size=1)
+        # a world of 1 on a store whose port the kernel picks as it binds
+        # it: a port found free and then bound can be taken in between
+        store = dist.TCPStore("localhost", 0, world_size=1, is_master=True)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
     return dist.get_rank(), dist.get_world_size(), True
 
 

@@ -6,6 +6,9 @@ Parameter layouts and the numerics (f32 norms, RoPE and softmax; matmuls
 in the parameters' dtype) follow the reference, so both packages compute
 the same function from the same parameters.
 
+The MoE FFN (``moe_ffn``) is plain PyTorch, as the reference's is plain
+jnp: a router, one-hot dispatch and combine, and batched expert matmuls.
+
 Attention without a cache dispatches through
 ``repro_torch.kernels.ops.flash_attention``, so ``attn_impl`` ("ref",
 "chunked" or "kernel"; see that module) is a runtime choice; cached
@@ -239,6 +242,138 @@ def init_mlp(gen, d: int, d_ff: int, dtype: torch.dtype, device) -> Params:
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) * x W_up) W_down."""
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN (GShard grouped-capacity dispatch, shared experts)
+# ---------------------------------------------------------------------------
+
+MOE_GROUP = 512                    # tokens per capacity group (GShard)
+
+
+def init_moe(gen, cfg: ArchConfig, device) -> Params:
+    """An f32 router (d, E), E SwiGLU experts stacked on a leading axis
+    and ``n_shared`` shared experts as one SwiGLU of ``n_shared * f``."""
+    mo = cfg.moe
+    d, e, f = cfg.d_model, mo.n_experts, mo.d_ff_expert
+    dt = _dtype(cfg)
+    scale = 1.0 / math.sqrt(d)
+    p = {"router": dense_init(gen, (d, e), device, scale=scale),
+         "w_gate": dense_init(gen, (e, d, f), device, scale=scale, dtype=dt),
+         "w_up": dense_init(gen, (e, d, f), device, scale=scale, dtype=dt),
+         "w_down": dense_init(gen, (e, f, d), device,
+                              scale=1.0 / math.sqrt(f), dtype=dt)}
+    if mo.n_shared:
+        p["shared"] = init_mlp(gen, d, f * mo.n_shared, dt, device)
+    return p
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: all zeros where ``idx`` is outside [0, n)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _route(p: Params, x: torch.Tensor, k: int):
+    """Router in f32: (probs, normalised top-k gates, expert ids).  Ties
+    go to the lowest expert id, as ``jax.lax.top_k`` breaks them (the
+    zero rows that pad a group have equal logits): ``argmax`` for k = 1,
+    a stable descending sort otherwise."""
+    probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+    if k == 1:
+        idx = torch.argmax(probs, dim=-1, keepdim=True)
+    else:
+        idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][
+            ..., :k]
+    vals = torch.gather(probs, -1, idx)
+    vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, vals, idx
+
+
+def _aux(probs: torch.Tensor, idx: torch.Tensor, e: int,
+         k: int) -> torch.Tensor:
+    """GShard load-balance loss E * sum_e(fraction routed_e * mean
+    prob_e), over every row given (a group's padding rows included)."""
+    me = probs.reshape(-1, e).mean(dim=0)
+    fe = _one_hot(idx, e, torch.float32).reshape(-1, e).mean(dim=0) * k
+    return e * torch.sum(fe * me)
+
+
+def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
+            dropless: bool = False, group_size: int = MOE_GROUP,
+            capacity_override: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with grouped capacity dispatch; returns
+    (output, router aux loss).
+
+    The B*S tokens are zero-padded to whole groups of ``group_size`` and
+    capacity is enforced per group: expert e takes the first ``cap``
+    (token, slot) pairs routed to it in token order, ``cap = max(int(gs *
+    k / E * capacity_factor), 1)`` or ``capacity_override``; the rest are
+    dropped (their gate is zeroed).  Dispatch and combine are one-hot
+    products in x's dtype.  The shared experts see every token.
+    ``dropless=True`` (decode) runs every expert on every token and gates
+    them: exact top-k, no capacity."""
+    if dropless:
+        return _moe_ffn_dropless(p, cfg, x)
+    mo = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = mo.n_experts, mo.top_k
+    gs = min(group_size, t)
+    pad = (-t) % gs
+    xt = x.reshape(t, d)
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+    ng = (t + pad) // gs
+    xg = xt.reshape(ng, gs, d)
+    probs, gate_vals, gate_idx = _route(p, xg, k)            # (g, gs, k)
+    cap = (capacity_override if capacity_override is not None
+           else max(int(gs * k / e * mo.capacity_factor), 1))
+    # each (token, slot)'s place in its expert's buffer: an exclusive
+    # cumsum in token order over the flattened (gs * k) slots
+    onehot = _one_hot(gate_idx, e, torch.int32)              # (g, gs, k, e)
+    flat = onehot.reshape(ng, gs * k, e)
+    pos_in_e = torch.cumsum(flat, dim=1) - flat
+    pos = torch.sum(pos_in_e * flat, dim=-1).reshape(ng, gs, k)
+    keep = pos < cap
+    gate_vals = gate_vals * keep
+
+    d_e = onehot.to(x.dtype)
+    d_c = _one_hot(pos, cap, x.dtype) * keep[..., None]
+    dispatch = torch.einsum("gtke,gtkc->gtec", d_e, d_c)     # (g, gs, e, c)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)        # (g, e, c, d)
+    gg = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
+    uu = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    ye = torch.einsum("gecf,efd->gecd", F.silu(gg) * uu, p["w_down"])
+    combine = torch.einsum("gtke,gtkc,gtk->gtec", d_e, d_c,
+                           gate_vals.to(x.dtype))
+    yt = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(ng * gs, d)
+    if pad:
+        yt = yt[:t]
+    if mo.n_shared:
+        yt = yt + mlp(p["shared"], x.reshape(t, d))
+    return yt.reshape(b, s, d), _aux(probs, gate_idx, e, k)
+
+
+def _moe_ffn_dropless(p: Params, cfg: ArchConfig, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    mo = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = mo.n_experts, mo.top_k
+    xt = x.reshape(t, d)
+    probs, gate_vals, gate_idx = _route(p, xt, k)
+    gates = torch.zeros((t, e), dtype=x.dtype, device=x.device).scatter(
+        1, gate_idx, gate_vals.to(x.dtype))
+    # (t, d) @ (E, d, f) broadcasts to one product an expert over the
+    # weights as they lie (an einsum would copy them into (d, E*f))
+    g = torch.matmul(xt, p["w_gate"])                        # (E, t, f)
+    u = torch.matmul(xt, p["w_up"])
+    ye = torch.matmul(F.silu(g) * u, p["w_down"])            # (E, t, d)
+    yt = torch.einsum("te,etd->td", gates, ye)
+    if mo.n_shared:
+        yt = yt + mlp(p["shared"], xt)
+    return yt.reshape(b, s, d), _aux(probs, gate_idx, e, k)
 
 
 def init_embedding(gen, vocab: int, d: int, dtype: torch.dtype,

@@ -4,6 +4,10 @@
           embeddings (the paper's transformer-big, seamless-m4t)
   dense   llama/qwen/chatglm/deepseek-7b style decoder (GQA, SwiGLU,
           optional q/k/v biases)
+  moe     the dense skeleton with a routed MoE FFN and shared experts
+          (llama4-scout): grouped capacity dispatch in training and the
+          prefill step, dropless (or ``moe_mode="capacity"``) in decode;
+          the router's load-balance loss joins the training loss
   hybrid  Zamba2: a Mamba2 stack with ONE shared attention block applied
           after every ``attn_every`` Mamba2 blocks (training through the
           differentiable ``ssd_chunked``, as the reference trains it; the
@@ -35,7 +39,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.tree import tree_flatten, tree_unflatten
 
-FAMILIES = ("audio", "dense", "hybrid", "vlm")
+FAMILIES = ("audio", "dense", "hybrid", "moe", "vlm")
+MOE_MODES = ("dropless", "capacity")
 
 Params = Dict[str, Any]
 
@@ -45,7 +50,9 @@ def _init_block(gen, cfg: ArchConfig, device) -> Params:
     p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, dt, device),
                  "norm2": L.init_rmsnorm(cfg.d_model, dt, device),
                  "attn": L.init_attention(gen, cfg, device),
-                 "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)}
+                 "ffn": (L.init_moe(gen, cfg, device) if cfg.moe is not None
+                         else L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt,
+                                         device))}
     if cfg.frontend is not None and cfg.frontend.cross_attention:
         p["norm_x"] = L.init_rmsnorm(cfg.d_model, dt, device)
         p["xattn"] = L.init_cross_attention(gen, cfg, device)
@@ -55,11 +62,17 @@ def _init_block(gen, cfg: ArchConfig, device) -> Params:
 def _block(p: Params, cfg: ArchConfig, x: torch.Tensor,
            positions: torch.Tensor, cache: Optional[Dict],
            enc: Optional[torch.Tensor], window: Optional[int],
-           attn_impl: str) -> Tuple[torch.Tensor, Optional[Dict]]:
+           attn_impl: str, moe_mode: str = "dropless"
+           ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Pre-norm self-attention (cached when ``cache`` is given),
-    cross-attention to ``enc`` and SwiGLU.  Returns (x, new cache); the
-    reference's third output, the MoE auxiliary loss, is always zero for
-    this family and is left out."""
+    cross-attention to ``enc`` and the FFN: SwiGLU, or the MoE FFN.
+    Returns (x, new cache, the MoE aux loss: zero without experts).
+
+    MoE without a cache (training, the prefill step): grouped capacity
+    dispatch.  With one (decode): dropless, or under
+    ``moe_mode="capacity"`` one group of the t = B*s decode tokens with
+    ``cap = min(max(8, ceil(4 t k / E)), t)``, four times the balanced
+    load."""
     a, new_cache = L.attention(p["attn"], cfg,
                                L.rmsnorm(p["norm1"], x, cfg.norm_eps),
                                positions, kv_cache=cache, window=window,
@@ -69,8 +82,19 @@ def _block(p: Params, cfg: ArchConfig, x: torch.Tensor,
         x = x + L.cross_attention(p["xattn"], cfg,
                                   L.rmsnorm(p["norm_x"], x, cfg.norm_eps),
                                   enc, attn_impl=attn_impl)
-    return x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x, cfg.norm_eps)), \
-        new_cache
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if cfg.moe is None:
+        return x + L.mlp(p["ffn"], h), new_cache, \
+            torch.zeros((), dtype=torch.float32, device=x.device)
+    if cache is not None and moe_mode == "capacity":
+        t = x.shape[0] * x.shape[1]
+        mo = cfg.moe
+        cap = max(8, -(-t * mo.top_k * 4 // mo.n_experts))
+        f, aux = L.moe_ffn(p["ffn"], cfg, h, group_size=t,
+                           capacity_override=min(cap, t))
+    else:
+        f, aux = L.moe_ffn(p["ffn"], cfg, h, dropless=cache is not None)
+    return x + f, new_cache, aux
 
 
 def _unstack(stacked: Params):
@@ -82,15 +106,11 @@ def _unstack(stacked: Params):
             for i in range(len(cols[0]))]
 
 
-def _to(tree, device) -> Params:
-    leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [t.to(device) for t in leaves])
-
-
 def _stacked(n: int, draw, device) -> Params:
-    """``n`` layers from ``draw()`` (one layer's tree, drawn on the host)
-    stacked on a leading axis of tensors allocated once on ``device``,
-    each layer copied into its slot before the next is drawn."""
+    """``n`` layers from ``draw()`` (one layer's tree) stacked on a
+    leading axis of tensors allocated once on ``device``, each layer
+    copied into its slot before the next is drawn, so no more than one
+    layer is ever held twice."""
     leaves, treedef = tree_flatten(draw())
     out = [torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=device)
            for t in leaves]
@@ -113,37 +133,40 @@ class Model:
 
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters with the reference's distributions, drawn on
-        the CPU from ``torch.Generator().manual_seed(seed)`` (so a seed
-        gives the same weights on every device) and placed on
-        ``device``: the card unless the caller asks for ``"cpu"``.
+        ``device`` (the card unless the caller asks for ``"cpu"``) from
+        ``torch.Generator(device=device).manual_seed(seed)``.  A seed
+        gives the same weights on every call on one kind of device, but
+        the card's generator and the CPU's draw different numbers: to
+        start the card from the CPU's weights, init on the CPU and copy.
         ``device="meta"`` gives shapes and dtypes only.  Stacked layers
-        are drawn one layer at a time straight into their slot on
-        ``device``, so the host never holds more than one layer."""
+        are drawn one layer at a time and copied into their slot, so a
+        full-width model never needs the host's memory or its one
+        thread."""
         device = torch.device(device)
         gen = (None if device.type == "meta"
-               else torch.Generator().manual_seed(seed))
+               else torch.Generator(device=device).manual_seed(seed))
         return self._init(gen, device)
 
     def _init(self, gen: Optional[torch.Generator], device) -> Params:
         cfg = self.cfg
         dt = L._dtype(cfg)
-        host = "meta" if gen is None else "cpu"
         params: Params = {
             "embedding": L.init_embedding(gen, cfg.vocab, cfg.d_model, dt,
-                                          host).to(device),
+                                          device),
             "final_norm": L.init_rmsnorm(cfg.d_model, dt, device),
         }
         if not cfg.tied_embeddings:
             params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab),
-                                             host, dtype=dt).to(device)
+                                             device, dtype=dt)
         if cfg.family == "hybrid":
             params["mamba"] = _stacked(
-                cfg.n_layers, lambda: S.init_mamba2(gen, cfg, host), device)
-            params["shared_attn"] = _to(_init_block(gen, cfg, host),
-                                        device)            # ONE shared
+                cfg.n_layers, lambda: S.init_mamba2(gen, cfg, device),
+                device)
+            params["shared_attn"] = _init_block(gen, cfg,
+                                                device)    # ONE shared
         else:
             params["layers"] = _stacked(
-                cfg.n_layers, lambda: _init_block(gen, cfg, host), device)
+                cfg.n_layers, lambda: _init_block(gen, cfg, device), device)
         return params
 
     def grad_blocks(self, params: Params) -> Tuple[str, ...]:
@@ -166,7 +189,19 @@ class Model:
                 taps: Optional[torch.Tensor] = None,
                 window: Optional[int] = None,
                 attn_impl: str = "chunked") -> torch.Tensor:
-        """Final hidden states (B, S, d) at the token positions: a vlm
+        """Final hidden states (B, S, d) at the token positions
+        (``forward_aux`` without its MoE aux loss)."""
+        return self.forward_aux(params, batch, taps=taps, window=window,
+                                attn_impl=attn_impl)[0]
+
+    def forward_aux(self, params: Params, batch: Dict[str, torch.Tensor],
+                    taps: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None,
+                    attn_impl: str = "chunked"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(final hidden states, the MoE aux loss summed over the layers:
+        f32, zero without experts), the reference's ``forward``.  Hidden
+        states are (B, S, d) at the token positions: a vlm
         prefix (``batch["frontend"]``, B x P x d) runs ahead of the tokens
         and its positions are dropped after the final norm.
         ``attn_impl`` as in ``repro_torch.kernels.ops``: "chunked"
@@ -185,15 +220,17 @@ class Model:
                 n_prefix = fe.shape[1]
                 x = torch.cat([fe, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "hybrid":
             x = self._hybrid_forward(params, x, positions, window,
                                      attn_impl)
         else:
             for lp in _unstack(params["layers"]):
-                x, _ = _block(lp, cfg, x, positions, None, enc, window,
-                              attn_impl)
+                x, _, a = _block(lp, cfg, x, positions, None, enc, window,
+                                 attn_impl)
+                aux = aux + a
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return x[:, n_prefix:] if n_prefix else x
+        return (x[:, n_prefix:] if n_prefix else x), aux
 
     def _segments(self):
         """Mamba2 layer ids of each segment that ends in the shared
@@ -211,8 +248,8 @@ class Model:
         for seg in segments:
             for i in seg:
                 x = x + S.mamba2_forward(mamba[i], cfg, x, ssd_route=route)
-            x, _ = _block(params["shared_attn"], cfg, x, positions, None,
-                          None, window, attn_impl)
+            x = _block(params["shared_attn"], cfg, x, positions, None,
+                       None, window, attn_impl)[0]
         for i in trailing:
             x = x + S.mamba2_forward(mamba[i], cfg, x, ssd_route=route)
         return x
@@ -223,9 +260,11 @@ class Model:
              loss_chunk: int = 1024,
              attn_impl: str = "chunked") -> Tuple[torch.Tensor, Dict]:
         """Token-mean cross-entropy, computed ``loss_chunk`` positions at
-        a time so only one chunk's f32 logits are live."""
-        h = self.forward(params, batch, taps=taps, window=window,
-                         attn_impl=attn_impl)
+        a time so only one chunk's f32 logits are live, plus
+        ``router_aux_weight`` times the MoE aux loss (``metrics["aux"]``)
+        where the config has experts."""
+        h, aux = self.forward_aux(params, batch, taps=taps, window=window,
+                                  attn_impl=attn_impl)
         labels = batch["labels"].long()
         mask = batch.get("loss_mask")
         if mask is None:
@@ -249,8 +288,10 @@ class Model:
             tot = tot + torch.sum((lse - picked) * mm)
             cnt = cnt + torch.sum(mm)
         ce = tot / torch.clamp(cnt, min=1.0)
-        metrics = {"ce": ce, "aux": torch.zeros_like(ce), "tokens": cnt}
-        return ce, metrics
+        total = ce
+        if self.cfg.moe is not None:
+            total = total + self.cfg.moe.router_aux_weight * aux
+        return total, {"ce": ce, "aux": aux, "tokens": cnt}
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, cache_len: int, device="cuda") -> Dict:
@@ -307,7 +348,8 @@ class Model:
                     window: Optional[int] = None,
                     attn_impl: str = "chunked", ring: bool = False,
                     n_valid: Optional[torch.Tensor] = None,
-                    input_embeds: Optional[torch.Tensor] = None
+                    input_embeds: Optional[torch.Tensor] = None,
+                    moe_mode: str = "dropless"
                     ) -> Tuple[torch.Tensor, Dict]:
         """One decode step: tokens (B, 1) -> logits (B, vocab) and the
         new cache.  ``enc`` (B, F, d) are the encoder states that every
@@ -321,7 +363,14 @@ class Model:
         one step (non-ring caches; the per-row causal mask keeps it
         exact) and return all s logit rows (B, s, vocab).  ``n_valid``
         (B,), when given, is the count of real tokens per slot: the cache
-        length advances by it instead of s."""
+        length advances by it instead of s.
+
+        ``moe_mode`` routes the MoE FFN (``_block``): "dropless" (every
+        expert on every token, gated) or "capacity" (grouped dispatch
+        over the step's tokens at four times the balanced load)."""
+        if moe_mode not in MOE_MODES:
+            raise ValueError(f"moe_mode must be one of {MOE_MODES}, got "
+                             f"{moe_mode!r}")
         cfg = self.cfg
         if input_embeds is not None:
             x = input_embeds.to(L._dtype(cfg))
@@ -338,8 +387,8 @@ class Model:
             for i, lp in enumerate(_unstack(params["layers"])):
                 lc = {"k": cache["k"][i], "v": cache["v"][i],
                       "length": length, "ring": ring}
-                x, nc = _block(lp, cfg, x, positions, lc, enc, window,
-                               attn_impl)
+                x, nc, _ = _block(lp, cfg, x, positions, lc, enc, window,
+                                  attn_impl, moe_mode=moe_mode)
                 ks.append(nc["k"])
                 vs.append(nc["v"])
             cache = {**cache, "k": torch.stack(ks), "v": torch.stack(vs)}
@@ -367,8 +416,8 @@ class Model:
                 x = x + y
             ac = {"k": cache["attn"]["k"][si], "v": cache["attn"]["v"][si],
                   "length": length, "ring": ring}
-            x, nc = _block(params["shared_attn"], cfg, x, positions, ac, enc,
-                           window, attn_impl)
+            x, nc, _ = _block(params["shared_attn"], cfg, x, positions, ac,
+                              enc, window, attn_impl)
             ks.append(nc["k"])
             vs.append(nc["v"])
         for i in trailing:
