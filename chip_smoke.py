@@ -27,6 +27,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                llama3.2-1b (128256 x 2048), seamless-m4t-large-v2
                (256206 x 1024) and llama4-scout-17b-a16e (2048 x 5120 ->
                202048 x 5120) timed with each kernel's own device time;
+               also deepseek-v2-236b's (2048 x 5120 ->
+               102400 x 5120, spilled) and xlstm-125m's 2 x 256 tokens
+               (512 x 768 -> 50304 x 768, counts in shared memory),
+               bitwise and timed the same way;
      int8_wire_kernel — the int8 wire's fused kernels: the error-feedback
                encode (bf16 leaf and f32 residual in, q, scale and the
                residual updated in place) bitwise against
@@ -51,7 +55,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
                and, outside the small cases of tests/test_kernels.py,
                also against the size of its reference output
                (relative L2 1e-2, worst query row 1.5e-2, max abs 2 bf16
-               ulps of max|ref|); the kernel refuses Dv != D; timed with
+               ulps of max|ref|); the kernel refuses Dv != D, and
+               ``ops.flash_attention(impl="kernel")`` at Dv != D (D 64 /
+               Dv 32 at GQA 2, and deepseek-v2's 192 / 128) is bitwise
+               ``impl="chunked"`` with no flash launch, while a Dv == D
+               call launches the kernel once; timed with
                the L2 flushed, beside
                ``scaled_dot_product_attention`` as the library yardstick;
                and zamba2-7b's head dim 112: causal and window-8192
@@ -197,7 +205,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                run's logits against the plain chunked path over all 32768
                tokens at ``PATH_TOL``, the top device kernels; the f32
                check as the hybrid's on the first 4096 tokens;
-               ``ServeEngine.generate`` as serve;
+               ``ServeEngine.generate`` as serve on 16-token prompts
+               (``SHORT_PROMPT``, as ``mla_serve`` and ``xlstm_serve``);
      vlm_prefill, vlm_f32, vlm_embeds — full-width internvl2-1b: the
                same prefill step and f32 check over 256 patch embeddings
                and 32768 tokens (24 "sm90" launches at 33024 rows), then
@@ -246,6 +255,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
                CPU run starts from the CPU's draws copied to the card
                (``host_weights``, ``host_drawn_init``): the card's
                generator draws other numbers from the same seed.
+ 11. mla     — deepseek-v2-236b (d 5120, 128 heads with MLA: kv_lora 512,
+               q·k head dim 128 + 64 = 192, v 128; 160 experts of 1536
+               top-6 and two shared; vocab 102400 untied) at full width,
+               depth cut to 2 (9,153,243,136 parameters) drawn on the
+               card (``mla_init``); ``mla_prefill``: the prefill step on
+               32768 tokens, where Dv != D takes the chunked route (no
+               flash launch), timed with peak memory and the top device
+               kernels, and "kernel" bitwise "chunked" on 4096 tokens;
+               ``mla_decode``: 8 requests, the absorbed decode against
+               the naive one (``naive_mla``), teacher-forced, at
+               ``PATH_TOL`` on requests whose top-6 experts agree;
+               ``mla_serve``; ``mla_wide_f32``: the reduced widths with
+               the full MLA config, card against CPU in f32 (forward on 2
+               x 256 tokens, 8 absorbed and 8 naive decode steps);
+               ``mla_path``: the reduced config through the launcher (3
+               steps of dense_reduce, 1 of sparse_gather; aux > 0);
+               ``small_mla``: the reduced config card against CPU, its
+               forward's flash attention at D = 32 on "simt";
+ 12. xlstm   — xlstm-125m (12 blocks, every 4th from the second sLSTM, d
+               768, 4 heads; tied 50304-row embedding) at full width
+               (220,493,664 parameters): ``xlstm_prefill`` on 2048 tokens
+               in bf16 with its relative L2 against f32; ``xlstm_decode``
+               (8 requests, 16 greedy steps; f32 decode against the f32
+               forward at 2e-4); ``xlstm_serve``; ``xlstm_f32`` (card
+               against CPU, 256 tokens); ``xlstm_path`` (the launcher at
+               2 x 256 tokens a step, 3 steps of dense_reduce and 1 of
+               sparse_gather, densify once a step at 50304 x 768); and
+               ``small_xlstm`` (reduced, card against CPU, forward,
+               decode and 2 launcher steps).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -493,7 +531,12 @@ def phase_kernel(D, tokens) -> dict:
 VOCAB_CONFIGS = (("llama3.2-1b", True), ("seamless-m4t-large-v2", True),
                  ("chatglm3-6b", False), ("qwen2.5-32b", False),
                  ("deepseek-7b", False), ("internvl2-1b", False),
-                 ("llama4-scout-17b-a16e", True))
+                 ("llama4-scout-17b-a16e", True), ("deepseek-v2-236b", True),
+                 ("xlstm-125m", True))
+# a worker's batch (x 256 tokens) where it is not 8: the one the config's
+# launcher phase trains with (xlstm-125m's recurrence keeps a (B, 4, 384,
+# 384) f32 state a step and layer for the backward)
+VOCAB_BATCH = {"xlstm-125m": 2}
 SMEM_VOCAB_LIMIT = 51199           # (51199 + 1) * 4 B = 200 KiB
 
 
@@ -501,11 +544,13 @@ def densify_vocab_cases(D, vals) -> dict:
     """densify at the new configs' vocabularies, each case bitwise equal
     to ``densify_plain`` on the card (exact values: every sum is exact,
     so any order gives the same bits) and across two launches: each
-    config's (8 x 256 tokens of its pipeline, d_model) at its vocabulary,
-    llama3.2-1b's also on f32 values, and vocab 51,199 (counts in shared
-    memory) against 51,200 (spilled) at d 1024.  The bf16 training
-    shapes of llama3.2-1b, seamless-m4t-large-v2 and llama4-scout-17b-a16e
-    (2048 x 5120 -> 202048 x 5120) are timed as device time beside
+    config's (8 x 256 tokens of its pipeline, or ``VOCAB_BATCH``'s, x
+    d_model) at its vocabulary, llama3.2-1b's also on f32 values, and
+    vocab 51,199 (counts in shared memory) against 51,200 (spilled) at d
+    1024.  The bf16 training shapes of llama3.2-1b, seamless-m4t-large-v2,
+    llama4-scout-17b-a16e (2048 x 5120 -> 202048 x 5120), deepseek-v2-236b
+    (2048 x 5120 -> 102400 x 5120, spilled) and xlstm-125m (512 x 768 ->
+    50304 x 768, in shared memory) are timed as device time beside
     ``index_add_`` and the byte bound, with each of the three kernels'
     own device time."""
     from repro_torch.configs import get_config
@@ -515,7 +560,8 @@ def densify_vocab_cases(D, vals) -> dict:
     cases = []
     for arch, timed in VOCAB_CONFIGS:
         cfg = get_config(arch)
-        tok = torch.from_numpy(make_pipeline(cfg, 8, 256).batch_at(0)[
+        tok = torch.from_numpy(make_pipeline(
+            cfg, VOCAB_BATCH.get(arch, 8), 256).batch_at(0)[
             "tokens"].reshape(-1)).to(dev)
         cases.append((f"{arch}_bf16", tok, vals(tok.numel(), torch.bfloat16,
                                                 cfg.d_model),
@@ -620,7 +666,8 @@ def full_width(arch):
     return [arch if a == "transformer-big" else a for a in FULL_WIDTH]
 
 
-def phase_path(train, D, comm, arch, runs, tag, extra=()) -> dict:
+def phase_path(train, D, comm, arch, runs, tag, extra=(),
+               profiled=True) -> dict:
     """The launcher trains full-width ``arch`` (or as ``extra`` flags
     say: ``--reduced``) for each (grad_accum, steps) of ``runs``
     (identity wire), the counts reset just before a run and read just
@@ -631,7 +678,9 @@ def phase_path(train, D, comm, arch, runs, tag, extra=()) -> dict:
     losses within 1e-3 relative (same weights, same batch: the loss
     precedes the exchange).  Each run prints its step ms, tok/s, the
     device busy ms and top kernels of one more step under a CUDA-only
-    ``torch.profiler``, peak memory (init included) and the optimizer
+    ``torch.profiler`` (unless ``profiled`` is False: a step of eager
+    recurrences is tens of thousands of kernels to record), peak
+    memory (init included) and the optimizer
     state's bytes, held equal to ``optimizer_state_bytes`` of the
     launcher's plan.  Returns the densify launches, the first-step
     losses and the median step ms of each strategy."""
@@ -698,7 +747,8 @@ def phase_path(train, D, comm, arch, runs, tag, extra=()) -> dict:
                     "step_ms_first": hist[0]["step_ms"],
                     "step_ms_median_after_first": median_ms[accum],
                     "tok_per_s": hist[-1]["tok_per_s"],
-                    "one_step_profiled": step_profile(train, argv, result),
+                    "one_step_profiled": (step_profile(train, argv, result)
+                                          if profiled else None),
                     "max_memory_allocated": peak,
                     "optimizer_state_bytes": state_b,
                     "training_state_bytes": nbytes(
@@ -2714,6 +2764,7 @@ PREFILL_LEN, N_ENC = 32768, 256
 VLM_PATCHES = 256                  # internvl2-1b's vision prefix
 TRANSLATE_B, TRANSLATE_PREFIX, TRANSLATE_NEW = 8, 16, 32
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
+SHORT_PROMPT = 16          # dense_serve, mla_serve, xlstm_serve
 
 
 def attended_pairs(sq, sk, causal, window):
@@ -2890,15 +2941,8 @@ def phase_attn_kernel(FA) -> dict:
         max_err = max(max_err, errs["max_abs_err"])
         print(json.dumps({"phase": "attn_kernel", "case": name,
                           "variant": variant, "args": kw, **errs}))
-    # the kernel takes Dv == D only; the public wrapper does not reroute
-    from repro_torch.kernels import ops
-    try:
-        ops.flash_attention(q, k, v[..., :32].contiguous(), impl="kernel")
-    except ValueError:
-        pass
-    else:
-        fail("flash attention: impl='kernel' took Dv != D on the card")
-    result = {"max_abs_err": max_err}
+    result = {"max_abs_err": max_err,
+              "mixed_head_dims": attn_mixed_head_dims(FA, q, k, v, gen)}
     for name, (q, k, v, causal, window) in tensors.items():
         bound_ms, bound_by, flops, nbytes = attn_bound(q, k, causal, window)
         kw = dict(causal=causal, window=window)
@@ -2953,6 +2997,50 @@ def phase_attn_kernel(FA) -> dict:
         print(json.dumps(timing_line))
         result[name] = timing_line
     return result
+
+
+def attn_mixed_head_dims(FA, q, k, v, gen) -> dict:
+    """Mixed head dims (Dv != D, MLA) under ``impl="kernel"`` take the
+    chunked route before any launch, as the reference's pallas impl
+    takes ``xla_chunked``: bitwise ``impl="chunked"``, no flash launch,
+    at a small GQA case (D 64, Dv 32) and at deepseek-v2-236b's head
+    dims (D 192 = nope 128 + rope 64, Dv 128); the kernel itself
+    refuses Dv != D, and a Dv == D call still launches it once."""
+    from repro_torch.kernels import ops
+    mla = (_randn((1, 300, 8, 192), torch.bfloat16, gen),
+           _randn((1, 300, 8, 192), torch.bfloat16, gen),
+           _randn((1, 300, 8, 128), torch.bfloat16, gen))
+    cases = {"gqa2_d64_dv32": (q, k, v[..., :32].contiguous()),
+             "mla_d192_dv128": mla}
+    for name, args in cases.items():
+        FA.reset_launches()
+        got = ops.flash_attention(*args, impl="kernel")
+        want = ops.flash_attention(*args, impl="chunked")
+        torch.cuda.synchronize()
+        if FA.flash_attention_kernel.launches != 0 \
+                or not torch.equal(got, want):
+            fail(f"flash attention {name}: impl='kernel' at Dv != D made "
+                 f"{FA.flash_attention_kernel.launches} launches or differs "
+                 f"from impl='chunked'")
+        try:
+            FA.flash_attention_kernel(*args)
+        except ValueError:
+            pass
+        else:
+            fail(f"flash attention {name}: the kernel took Dv != D")
+    FA.reset_launches()
+    ops.flash_attention(q, k, v, impl="kernel")
+    torch.cuda.synchronize()
+    if FA.flash_attention_kernel.launches != 1:
+        fail(f"flash attention: a Dv == D call made "
+             f"{FA.flash_attention_kernel.launches} launches (want 1)")
+    FA.reset_launches()
+    line = {"phase": "attn_kernel", "case": "mixed_head_dims",
+            "cases": sorted(cases), "kernel_impl_bitwise_chunked": True,
+            "flash_launches_at_dv_ne_d": 0, "kernel_refuses_dv_ne_d": True,
+            "flash_launches_at_dv_eq_d": 1}
+    print(json.dumps(line))
+    return line
 
 
 def attn_variant(FA, name, q, k, v, want_sm90: bool) -> str:
@@ -3591,16 +3679,20 @@ def phase_prefill(model, params, FA, tag="prefill") -> dict:
 
 @contextlib.contextmanager
 def recorded_routes():
-    """Within the block, every ``moe_ffn`` call appends the top-1 expert
-    id of each of its tokens (argmax of the f32 router logits, the
-    route ``moe_ffn`` takes) to the yielded list, one (B*S,) tensor a
-    call; calls ``moe_ffn`` itself unchanged."""
+    """Within the block, every ``moe_ffn`` call appends the experts of
+    each of its tokens to the yielded list, one tensor a call: top-1,
+    the argmax of the f32 router logits (B*S,); top-k, the k expert ids
+    sorted (B*S, k), the set ``moe_ffn`` routes to.  Calls ``moe_ffn``
+    itself unchanged."""
     from repro_torch.models import layers as L
     inner, routes = L.moe_ffn, []
 
     def moe_ffn(p, cfg, x, *args, **kw):
-        routes.append(torch.argmax(x.reshape(-1, x.shape[-1]).float()
-                                   @ p["router"], dim=-1))
+        logits = x.reshape(-1, x.shape[-1]).float() @ p["router"]
+        k = cfg.moe.top_k
+        routes.append(torch.argmax(logits, dim=-1) if k == 1 else
+                      torch.topk(logits, k, dim=-1).indices.sort(
+                          dim=-1).values)
         return inner(p, cfg, x, *args, **kw)
     L.moe_ffn = moe_ffn
     try:
@@ -3614,10 +3706,11 @@ def route_flips(a: list, b: list) -> dict:
     routes, per layer, and whether the last token's differs in any."""
     if len(a) != len(b) or not a:
         fail(f"routes: {len(a)} and {len(b)} moe_ffn calls recorded")
-    return {"share_by_layer": [(x != y).float().mean().item()
+    return {"share_by_layer": [(x != y).reshape(x.shape[0], -1).any(-1)
+                               .float().mean().item()
                                for x, y in zip(a, b)],
-            "tokens": int(a[0].numel()),
-            "last_token_flipped": any(bool(x[-1] != y[-1])
+            "tokens": int(a[0].shape[0]),
+            "last_token_flipped": any(bool((x[-1] != y[-1]).any())
                                       for x, y in zip(a, b))}
 
 
@@ -3689,15 +3782,18 @@ def phase_translate(model, params, FA) -> dict:
     return {"launches": launches, **line}
 
 
-def phase_serve(model, params, FA, tag="serve") -> dict:
-    """``ServeEngine.generate`` on 8 prompts of 64 tokens, 32 new tokens:
-    no encoder states, so no kernel launch (the reference's engine passes
-    none); output shape and EOS masking asserted."""
+def phase_serve(model, params, FA, tag="serve",
+                prompt=SERVE_PROMPT) -> dict:
+    """``ServeEngine.generate`` on 8 prompts of ``prompt`` tokens (64, or
+    ``SHORT_PROMPT`` where the sequential prefill of a large model would
+    take the script's time), 32 new tokens: no encoder states, so no
+    kernel launch (the reference's engine passes none); output shape and
+    EOS masking asserted."""
     import numpy as np
     from repro_torch.serving import ServeEngine
     prompts = np.random.default_rng(3).integers(
-        3, model.cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
-    cache_len = SERVE_PROMPT + SERVE_NEW + 1
+        3, model.cfg.vocab, (SERVE_B, prompt)).astype(np.int32)
+    cache_len = prompt + SERVE_NEW + 1
     probe = ServeEngine(model, params, cache_len=cache_len, eos_id=-1)
     probe.generate(prompts[:, :4], max_new=2)     # warm-up
     FA.reset_launches()
@@ -3720,7 +3816,8 @@ def phase_serve(model, params, FA, tag="serve") -> dict:
     if not (masked[0, 2:] == eos).all():
         fail(f"{tag}: the first row did not stop at its third token")
     decode_ms = (ms - pre_ms) / (SERVE_NEW - 1)
-    line = {"phase": tag, "arch": model.cfg.name, "requests": SERVE_B, "prompt": SERVE_PROMPT,
+    line = {"phase": tag, "arch": model.cfg.name, "requests": SERVE_B,
+            "prompt": prompt,
             "new_tokens": SERVE_NEW, "launches": launches,
             "generate_ms": ms, "generate_first_token_ms": pre_ms,
             "decode_ms_per_token_step": decode_ms,
@@ -3775,10 +3872,13 @@ def phase_small_forward() -> None:
 # ---------------------------------------------------------------------------
 
 # parameters of the configs that phase_init builds at full width
-# (llama4-scout-17b-a16e at depth MOE_DEPTH)
+# (llama4-scout-17b-a16e at depth MOE_DEPTH, deepseek-v2-236b at
+# MLA_DEPTH)
 FULL_PARAMS = {"transformer-big": 160_365_568, "zamba2-7b": 6_750_840_528,
                "chatglm3-6b": 6_243_584_000, "internvl2-1b": 493_780_992,
-               "llama4-scout-17b-a16e": 6_473_180_160}
+               "llama4-scout-17b-a16e": 6_473_180_160,
+               "deepseek-v2-236b": 9_153_243_136,
+               "xlstm-125m": 220_493_664}
 VLM_B, VLM_PROMPT = 2, 16          # requests and tokens of prefill(embeds=)
 
 
@@ -3952,21 +4052,29 @@ def phase_small_dense() -> None:
 
 MOE_ARCH, MOE_DEPTH = "llama4-scout-17b-a16e", 2
 MOE_B, MOE_PREFIX, MOE_NEW = 8, 16, 16
+MOE_DECODE_MODES = (("dropless", {"moe_mode": "dropless"}, None),
+                    ("capacity", {"moe_mode": "capacity"}, None))
 
 
-def phase_moe_decode(model, params, FA) -> dict:
-    """8 requests: a 16-token sequential prefill (dropless, as the
-    reference's ``prefill``), then 16 greedy ``decode_step``s under
-    ``moe_mode="dropless"`` and the same 16 steps teacher-forced on those
-    tokens under ``"capacity"``.  A step has t = 8 tokens, so cap =
-    min(max(8, ceil(4 t k / E)), t) = 8 = t: nothing drops, and the two
-    agree within bf16 rounding.  Every step's logits at ``PATH_TOL`` on
-    the requests whose experts were the same in both modes in that step
-    and every earlier one (``recorded_routes``: a near-tied route flips
-    under a last-bit difference, and the request's logits then part by
-    O(1)); the flipped requests are reported, and all 8 flipped fails.
-    ms a step, device busy and idle share of one step; no kernel launch
-    (cached attention is ``decode_attention``)."""
+def phase_moe_decode(model, params, FA, tag="moe_decode",
+                     modes=MOE_DECODE_MODES) -> dict:
+    """8 requests: a 16-token sequential prefill (the default decode:
+    dropless, absorbed), then 16 greedy ``decode_step``s in the first of
+    ``modes`` and the same 16 steps teacher-forced on those tokens in
+    the second; a mode is (name, ``decode_step`` keywords, a context
+    manager or None).  Scout: ``moe_mode="dropless"`` against
+    ``"capacity"`` (a step has t = 8 tokens, so cap = min(max(8,
+    ceil(4 t k / E)), t) = 8 = t: nothing drops); deepseek-v2: the
+    absorbed MLA decode against the naive one (``naive_mla``).  The two
+    agree within bf16 rounding: every step's logits at ``PATH_TOL`` on
+    the requests whose experts (the top-k set) were the same in both
+    modes (``recorded_routes``: a near-tied route flips under a last-bit
+    difference, and the request's logits then part by O(1)): in every
+    layer at that step, and in the layers before the last (whose outputs
+    the cache carries) at every earlier step; the flips are reported,
+    and every request flipped before the last layer fails.  ms a step,
+    device busy and idle share of one step; no kernel launch (cached
+    attention is plain PyTorch)."""
     from repro_torch.data import make_pipeline
     cfg = model.cfg
     prefix = torch.from_numpy(make_pipeline(
@@ -3978,78 +4086,89 @@ def phase_moe_decode(model, params, FA) -> dict:
         (first, start), pre_ms = timed(lambda: model.prefill(params, cache,
                                                              prefix))
 
-        def steps(mode, stream):
+        def steps(kw, stream):
             logits, c, got, fed = first, start, [], []
             for i in range(MOE_NEW):
                 tok = (torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
                        if stream is None else stream[:, i:i + 1])
                 fed.append(tok)
-                logits, c = model.decode_step(params, c, tok, moe_mode=mode)
+                logits, c = model.decode_step(params, c, tok, **kw)
                 got.append(logits)
             return torch.stack(got, 1), torch.cat(fed, 1), c
 
-        for mode in ("dropless", "capacity"):
-            (logits, fed, c), ms = timed(lambda: steps(mode, toks))
-            toks = fed if toks is None else toks
-            with recorded_routes() as routes:
-                steps(mode, toks)
-            tok = toks[:, -1:]
-            busy = top_device_kernels(lambda: model.decode_step(
-                params, c, tok, moe_mode=mode))
-            _, one_ms = timed(lambda: model.decode_step(params, c, tok,
-                                                        moe_mode=mode))
+        for mode, kw, ctx in modes:
+            with ctx() if ctx is not None else contextlib.nullcontext():
+                (logits, fed, c), ms = timed(lambda: steps(kw, toks))
+                toks = fed if toks is None else toks
+                with recorded_routes() as routes:
+                    steps(kw, toks)
+                tok = toks[:, -1:]
+                busy = top_device_kernels(lambda: model.decode_step(
+                    params, c, tok, **kw))
+                _, one_ms = timed(lambda: model.decode_step(params, c, tok,
+                                                            **kw))
             if tuple(logits.shape) != (MOE_B, MOE_NEW, cfg.vocab) \
                     or not torch.isfinite(logits).all() \
                     or int(c["length"][0]) != MOE_PREFIX + MOE_NEW:
-                fail(f"moe decode {mode}: logits {tuple(logits.shape)}, "
+                fail(f"{tag} {mode}: logits {tuple(logits.shape)}, "
                      f"lengths {c['length'].tolist()}")
             out[mode] = {"logits": logits, "decode_ms_per_step": ms / MOE_NEW,
                          "routes": torch.stack(routes).view(
-                             MOE_NEW, cfg.n_layers, MOE_B),
+                             MOE_NEW, cfg.n_layers, MOE_B, -1),
                          "one_step_ms": one_ms,
                          "device_busy_ms": busy["device_busy_ms"],
                          "idle_share": 1 - busy["device_busy_ms"] / one_ms,
                          "top": busy["top"][:4]}
         launches = FA.flash_attention_kernel.launches
     if launches != 0:
-        fail(f"moe decode: {launches} flash attention launches (want 0)")
-    # a request flipped at step i stays parted: its cache carries it
-    flipped = torch.cumsum((out["dropless"]["routes"]
-                            != out["capacity"]["routes"]).any(dim=1).int(),
-                           dim=0) > 0                       # (steps, B)
+        fail(f"{tag}: {launches} flash attention launches (want 0)")
+    (a, _, _), (b, _, _) = modes
+    flip = (out[a]["routes"] != out[b]["routes"]).any(dim=3)  # (steps, L, B)
+    # a flip before the last layer parts the request's cache from that
+    # step on; one in the last layer parts only that step's logits
+    flipped = torch.cumsum(flip[:, :-1].any(dim=1).int(), dim=0) > 0
     if bool(flipped[-1].all()):
-        fail("moe decode: every request's experts differ between dropless "
-             "and capacity")
+        fail(f"{tag}: every request's experts differ between {a} and {b}")
+    excluded = flipped | flip[:, -1]                          # (steps, B)
     worst = {"max_abs": 0.0, "rel_l2": 0.0}
     for i in range(MOE_NEW):
-        keep = ~flipped[i]
-        d = check_logits(f"moe decode capacity vs dropless, step {i}",
-                         out["capacity"]["logits"][keep, i],
-                         out["dropless"]["logits"][keep, i])
+        keep = ~excluded[i]
+        d = check_logits(f"{tag} {b} vs {a}, step {i}",
+                         out[b]["logits"][keep, i],
+                         out[a]["logits"][keep, i])
         worst = {k: max(worst[k], d[k]) for k in worst}
-    line = {"phase": "moe_decode", "arch": cfg.name, "depth": cfg.n_layers,
+    line = {"phase": tag, "arch": cfg.name, "depth": cfg.n_layers,
             "requests": MOE_B, "prefix": MOE_PREFIX, "new_tokens": MOE_NEW,
             "launches": launches, "prefill_ms": pre_ms,
             **{mode: {k: v for k, v in o.items()
                       if k not in ("logits", "routes")}
                for mode, o in out.items()},
-            "capacity_vs_dropless_worst": worst, "tol": PATH_TOL,
+            f"{b}_vs_{a}_worst": worst, "tol": PATH_TOL,
             "requests_with_a_flipped_route": int(flipped[-1].sum()),
+            "last_layer_flips": int(flip[:, -1].sum()),
+            "rows_compared": int((~excluded).sum()),
             "first_row_tokens": toks[0].tolist()}
     print(json.dumps(line))
     return line
 
 
-def phase_small_moe(FA) -> None:
-    """The reduced llama4-scout-17b-a16e in f32 (4 experts, top-1, one
-    shared): the prefill step's forward (last logits and the aux loss),
-    a 4-token prefill and 4 teacher-forced decode steps (two dropless,
-    two capacity) on the card (the kernel's f32 path) and on the CPU (its
-    plain version), from the CPU's weights, within 3e-5."""
+SMALL_MOE_STEPS = (("dropless", {"moe_mode": "dropless"}, None),) * 2 + (
+    ("capacity", {"moe_mode": "capacity"}, None),) * 2
+
+
+def phase_small_moe(FA, arch=MOE_ARCH, tag="small_moe",
+                    steps=SMALL_MOE_STEPS) -> dict:
+    """The reduced ``arch`` in f32 (4 experts): the prefill step's
+    forward (last logits and the aux loss; one flash launch a layer, on
+    "simt"), a 4-token prefill and 4 teacher-forced decode steps, each in
+    its mode of ``steps`` (scout: two dropless, two capacity;
+    deepseek-v2: two absorbed, two naive MLA decodes), on the card (the
+    kernel's f32 path) and on the CPU (its plain version), from the
+    CPU's weights, within 3e-5.  Returns the card's flash launches."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model
-    model = build_model(get_config(MOE_ARCH).reduced())
+    model = build_model(get_config(arch).reduced())
     batch = make_pipeline(model.cfg, 2, 16).batch_at(0)
     tol = ATTN_TOL[torch.float32]
     outs = []
@@ -4060,18 +4179,20 @@ def phase_small_moe(FA) -> None:
             FA.reset_launches()
             h, aux = model.forward_aux(params, {"tokens": t},
                                        attn_impl="kernel")
-            if dev == "cuda" and FA.flash_attention_kernel.launches \
-                    != model.cfg.n_layers:
-                fail(f"small moe: {FA.flash_attention_kernel.launches} "
-                     f"flash launches (want {model.cfg.n_layers})")
+            if dev == "cuda":
+                launches = dict(FA.flash_attention_kernel.launches_by_variant)
+                if launches != {"sm90": 0, "mma": 0,
+                                "simt": model.cfg.n_layers}:
+                    fail(f"{tag}: flash launches {launches} (want "
+                         f"{model.cfg.n_layers} on simt)")
             logits = [model.head(params, h[:, -1]), aux[None]]
             cache = model.init_cache(2, 8, device=dev)
             lg, cache = model.prefill(params, cache, t[:, :4])
             logits.append(lg)
-            for i, mode in zip(range(4, 8), ("dropless", "dropless",
-                                             "capacity", "capacity")):
-                lg, cache = model.decode_step(params, cache, t[:, i:i + 1],
-                                              moe_mode=mode)
+            for i, (_, kw, ctx) in zip(range(4, 8), steps):
+                with ctx() if ctx is not None else contextlib.nullcontext():
+                    lg, cache = model.decode_step(params, cache,
+                                                  t[:, i:i + 1], **kw)
                 logits.append(lg)
             outs.append([x.cpu() for x in logits])
     worst = 0.0
@@ -4079,10 +4200,415 @@ def phase_small_moe(FA) -> None:
         err = (a - c).abs().max().item()
         worst = max(worst, err)
         if not torch.allclose(a, c, **tol):
-            fail(f"small moe: output {i} card vs cpu max abs err {err}")
-    print(json.dumps({"phase": "small_moe", "outputs": len(outs[0]),
-                      "aux_card": outs[0][1].item(),
-                      "max_abs_err": worst, "tol": tol}))
+            fail(f"{tag}: output {i} card vs cpu max abs err {err}")
+    line = {"phase": tag, "arch": model.cfg.name, "outputs": len(outs[0]),
+            "decode_modes": [m for m, _, _ in steps],
+            "aux_card": outs[0][1].item(), "flash_launches_by_variant":
+                launches, "max_abs_err": worst, "tol": tol}
+    print(json.dumps(line))
+    return line
+
+
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v2-236b at full width, depth cut to 2
+# ---------------------------------------------------------------------------
+
+MLA_ARCH, MLA_DEPTH = "deepseek-v2-236b", 2
+
+
+@contextlib.contextmanager
+def naive_mla():
+    """Within the block, ``layers.mla_attention`` decodes without
+    absorption (``absorbed=False``: the compressed cache decompressed
+    into per-head keys and values, then ``decode_attention``), a path
+    ``decode_step`` takes no argument for, as the reference's takes
+    none."""
+    from repro_torch.models import layers as L
+    inner = L.mla_attention
+
+    def naive(*args, **kw):
+        return inner(*args, **{**kw, "absorbed": False})
+    L.mla_attention = naive
+    try:
+        yield
+    finally:
+        L.mla_attention = inner
+
+
+MLA_DECODE_MODES = (("absorbed", {}, None), ("naive", {}, naive_mla))
+SMALL_MLA_STEPS = (("absorbed", {}, None),) * 2 + (
+    ("naive", {}, naive_mla),) * 2
+
+
+def phase_mla_prefill(model, params, FA) -> dict:
+    """deepseek-v2-236b's prefill step (``forward(attn_impl="kernel")``
+    and ``head`` on the last position) on one 32768-token sequence.  Its
+    q·k head dim (nope 128 + rope 64 = 192) is not its v head dim (128),
+    so "kernel" takes the chunked route, as the reference's pallas impl
+    takes xla_chunked: no flash launch (counts reset just before, read
+    just after).  One timed run (its kernels ran in earlier phases),
+    peak memory, the top device kernels of a profiled run; then the
+    hidden states of "kernel" and "chunked" on the first 4096 tokens
+    bitwise equal."""
+    from repro_torch.data import make_pipeline
+    cfg = model.cfg
+    tokens = torch.from_numpy(make_pipeline(cfg, 1, PREFILL_LEN).batch_at(0)[
+        "tokens"]).cuda()
+
+    def hidden(impl, n=PREFILL_LEN):
+        return model.forward(params, {"tokens": tokens[:, :n]},
+                             attn_impl=impl)
+
+    def prefill_step():
+        return model.head(params, hidden("kernel")[:, -1:])[:, 0]
+
+    with torch.no_grad():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        logits, ms = timed(prefill_step)
+        launches = FA.flash_attention_kernel.launches
+        peak = torch.cuda.max_memory_allocated()
+        profiled = top_device_kernels(prefill_step)
+        if launches != 0:
+            fail(f"mla prefill: {launches} flash launches at Dv != D "
+                 f"(want 0: the chunked route)")
+        if tuple(logits.shape) != (1, cfg.vocab) \
+                or not torch.isfinite(logits).all():
+            fail(f"mla prefill: logits {tuple(logits.shape)} or not finite")
+        torch.cuda.empty_cache()
+        same = torch.equal(hidden("kernel", CHECK_LEN),
+                           hidden("chunked", CHECK_LEN))
+        torch.cuda.empty_cache()
+    if not same:
+        fail(f"mla prefill: attn_impl='kernel' differs from 'chunked' on "
+             f"{CHECK_LEN} tokens at Dv != D")
+    line = {"phase": "mla_prefill", "arch": cfg.name, "depth": cfg.n_layers,
+            "tokens": PREFILL_LEN, "qk_head_dim":
+                cfg.mla.nope_dim + cfg.mla.rope_dim,
+            "v_head_dim": cfg.mla.v_dim, "flash_launches": launches,
+            "ms": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
+            "idle_share": 1 - profiled["device_busy_ms"] / ms,
+            "max_memory_allocated": peak, "profiled": profiled,
+            f"kernel_bitwise_chunked_{CHECK_LEN}": same}
+    print(json.dumps(line))
+    return line
+
+
+def phase_mla_wide_f32(FA) -> dict:
+    """The reduced deepseek-v2 (d 128, 4 heads, 4 experts, f32) with the
+    full config's own MLA (kv_lora 512, q·k 128 + 64 = 192, v 128): the
+    one place mixed head dims meet a CPU result.  From the CPU's
+    weights, on the card and on the CPU: the forward over 2 x 256 tokens
+    through "kernel" (the chunked route: no flash launch), every
+    position's logits and the aux loss; then 8 teacher-forced decode
+    steps from an empty cache, absorbed and naive.  Card against CPU
+    within 3e-5; absorbed against naive and the last decode step
+    against the forward within 2e-4, at capacity factor 4 (no token
+    drops in the forward), as tests/test_decode.py."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    cfg = get_config(MLA_ARCH).reduced()
+    model = build_model(cfg.with_(
+        mla=get_config(MLA_ARCH).mla,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=4.0)))
+    tokens = make_pipeline(model.cfg, 2, 256).batch_at(0)["tokens"]
+    tol, self_tol = ATTN_TOL[torch.float32], dict(rtol=2e-4, atol=2e-4)
+    outs = {}
+    with torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            params = host_weights(model, 0, dev)
+            t = torch.from_numpy(tokens).to(dev)
+            FA.reset_launches()
+            h, aux = model.forward_aux(params, {"tokens": t},
+                                       attn_impl="kernel")
+            if dev == "cuda" and FA.flash_attention_kernel.launches:
+                fail(f"mla wide f32: {FA.flash_attention_kernel.launches} "
+                     f"flash launches at Dv != D (want 0)")
+            got = {"forward": model.head(params, h), "aux": aux[None]}
+            for mode, _, ctx in MLA_DECODE_MODES:
+                cache = model.init_cache(2, 8, device=dev)
+                steps = []
+                with ctx() if ctx is not None else contextlib.nullcontext():
+                    for i in range(8):
+                        lg, cache = model.decode_step(params, cache,
+                                                      t[:, i:i + 1])
+                        steps.append(lg)
+                got[mode] = torch.stack(steps, 1)
+            outs[dev] = {k: v.cpu() for k, v in got.items()}
+    errs = {}
+    for k in outs["cuda"]:
+        a, c = outs["cuda"][k], outs["cpu"][k]
+        errs[k] = (a - c).abs().max().item()
+        if not torch.allclose(a, c, **tol):
+            fail(f"mla wide f32: {k} card vs cpu max abs err {errs[k]}")
+    card = outs["cuda"]
+    pairs = {"naive_vs_absorbed": (card["naive"], card["absorbed"]),
+             "decode_vs_forward": (card["absorbed"][:, -1],
+                                   card["forward"][:, 7])}
+    self_errs = {}
+    for k, (a, c) in pairs.items():
+        self_errs[k] = (a - c).abs().max().item()
+        if not torch.allclose(a, c, **self_tol):
+            fail(f"mla wide f32: {k} max abs err {self_errs[k]}")
+    line = {"phase": "mla_wide_f32", "arch": model.cfg.name,
+            "mla": {"kv_lora": 512, "qk_head_dim": 192, "v_head_dim": 128},
+            "tokens": list(tokens.shape), "decode_steps": 8,
+            "card_vs_cpu_max_abs": errs, "tol": tol,
+            "on_card_max_abs": self_errs, "self_tol": self_tol}
+    print(json.dumps(line))
+    return line
+
+
+# ---------------------------------------------------------------------------
+# the ssm family: xlstm-125m at full width
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH, XLSTM_PREFILL, XLSTM_PROFILED = "xlstm-125m", 2048, 64
+XLSTM_F32_LEN = 256                # tokens of the card-vs-CPU check
+# the depth of the tight f32 checks: block 0 (mLSTM) and block 1 (sLSTM)
+# of the full-width weights.  At full depth the random 12-block model
+# turns summation-order differences into O(1e-3) of its logits: an mLSTM
+# step divides by max(|q.n|, exp(-m)), so a block can scale its input's
+# perturbations by exp(i) (the reference's own decode and forward part
+# there by more than 2e-4 too), so full depth is held at ``PATH_TOL``.
+XLSTM_CHECK_DEPTH = 2
+XLSTM_DECODE_TOL = dict(rtol=2e-4, atol=2e-4)      # tests/test_decode.py
+
+
+def xlstm_depth(model, params, n):
+    """The model cut to its first ``n`` blocks, over views of the same
+    weights."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    return build_model(model.cfg.with_(n_layers=n)), {
+        k: tree_map(lambda t: t[:n], v) if k in ("mlstm", "slstm") else v
+        for k, v in params.items()}
+
+
+def phase_xlstm_prefill(model, params) -> dict:
+    """xlstm-125m's prefill step (``forward`` and ``head`` on the last
+    position; no attention, so no kernel) on one sequence of 2048
+    tokens in bf16, timed, with peak memory; the relative L2 of its
+    logits and of every position's hidden states against the same
+    weights cast to f32 (reported: bf16 rounding, carried through 12
+    random blocks); the device busy ms, idle share and top device
+    kernels of a profiled 64-token forward (the recurrence runs one
+    eager step at a time, ~12 launches a step and mLSTM block)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    tokens = torch.from_numpy(make_pipeline(cfg, 1, XLSTM_PREFILL).batch_at(
+        0)["tokens"]).cuda()
+    f32 = build_model(cfg.with_(dtype="float32"))
+    params32 = tree_map(lambda t: t.float(), params)
+
+    def step(m, p, n=XLSTM_PREFILL):
+        h = m.forward(p, {"tokens": tokens[:, :n]})
+        return h, m.head(p, h[:, -1:])[:, 0]
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        (h, logits), ms = timed(lambda: step(model, params))
+        peak = torch.cuda.max_memory_allocated()
+        (h32, logits32), ms32 = timed(lambda: step(f32, params32))
+        _, short_ms = timed(lambda: step(model, params, XLSTM_PROFILED))
+        profiled = top_device_kernels(
+            lambda: step(model, params, XLSTM_PROFILED))
+    if tuple(logits.shape) != (1, cfg.vocab) \
+            or not torch.isfinite(logits).all():
+        fail(f"xlstm prefill: logits {tuple(logits.shape)} or not finite")
+    line = {"phase": "xlstm_prefill", "arch": cfg.name,
+            "tokens": XLSTM_PREFILL, "dtype": cfg.dtype, "ms": ms,
+            "tok_per_s": XLSTM_PREFILL / ms * 1e3,
+            "max_memory_allocated": peak, "f32_ms": ms32,
+            "logits_vs_f32": logits_diff("xlstm prefill", logits, logits32),
+            "hidden_vs_f32": logits_diff("xlstm prefill", h, h32),
+            "profiled_tokens": XLSTM_PROFILED, "profiled_wall_ms": short_ms,
+            "idle_share": 1 - profiled["device_busy_ms"] / short_ms,
+            "profiled": profiled}
+    print(json.dumps(line))
+    return line
+
+
+def xlstm_teacher_forced(model, params, stream, n_prefix):
+    """``prefill`` over ``stream[:, :n_prefix]``, then a ``decode_step``
+    for each later token but the last: (B, S - n_prefix, vocab) logits,
+    row j at position n_prefix - 1 + j."""
+    b, n = stream.shape
+    got, c = model.prefill(params, model.init_cache(b, n, device="cuda"),
+                           stream[:, :n_prefix])
+    rows = [got]
+    for i in range(n_prefix, n - 1):
+        got, c = model.decode_step(params, c, stream[:, i:i + 1])
+        rows.append(got)
+    return torch.stack(rows, 1)
+
+
+def phase_xlstm_decode(model, params) -> dict:
+    """8 requests: ``Model.prefill`` over a 16-token prefix and 16 greedy
+    ``decode_step``s in bf16 (ms a step, device busy and idle share of
+    one step; no kernel); then, with the weights cast to f32, those 32
+    tokens teacher-forced through prefill and decode, every step's
+    logits against the f32 forward's at the same position: within 2e-4
+    (tests/test_decode.py's tolerance) on the first ``XLSTM_CHECK_DEPTH``
+    blocks (one mLSTM, one sLSTM), and at ``PATH_TOL`` at full depth."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    prefix = torch.from_numpy(make_pipeline(
+        cfg, MOE_B, MOE_PREFIX).batch_at(1)["tokens"]).cuda()
+    n = MOE_PREFIX + MOE_NEW
+    with torch.no_grad():
+        cache = model.init_cache(MOE_B, n, device="cuda")
+        (logits, cache), pre_ms = timed(lambda: model.prefill(params, cache,
+                                                              prefix))
+        toks = [prefix]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MOE_NEW):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            logits, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / MOE_NEW
+        busy = top_device_kernels(lambda: model.decode_step(params, cache,
+                                                            tok))
+        _, one_ms = timed(lambda: model.decode_step(params, cache, tok))
+        if int(cache["length"][0]) != n or not torch.isfinite(logits).all():
+            fail(f"xlstm decode: length {cache['length'].tolist()} or "
+                 f"logits not finite")
+        stream = torch.cat(toks, 1)[:, :n]
+        f32 = build_model(cfg.with_(dtype="float32"))
+        p32 = tree_map(lambda t: t.float(), params)
+        diffs = {}
+        for depth in (XLSTM_CHECK_DEPTH, cfg.n_layers):
+            m, p = xlstm_depth(f32, p32, depth)
+            want = m.head(p, m.forward(p, {"tokens": stream}))[
+                :, MOE_PREFIX - 1:n - 1]
+            got = xlstm_teacher_forced(m, p, stream, MOE_PREFIX)
+            diffs[depth] = logits_diff(f"xlstm decode depth {depth}", got,
+                                       want)
+            if depth == XLSTM_CHECK_DEPTH \
+                    and not torch.allclose(got, want, **XLSTM_DECODE_TOL):
+                fail(f"xlstm decode: f32 decode vs forward at depth {depth}: "
+                     f"{diffs[depth]} (tol {XLSTM_DECODE_TOL})")
+    full = check_logits("xlstm decode f32 vs forward, full depth",
+                        got, want)
+    line = {"phase": "xlstm_decode", "arch": cfg.name, "requests": MOE_B,
+            "prefix": MOE_PREFIX, "new_tokens": MOE_NEW, "prefill_ms": pre_ms,
+            "decode_ms_per_step": step_ms, "one_step_ms": one_ms,
+            "device_busy_ms": busy["device_busy_ms"],
+            "idle_share": 1 - busy["device_busy_ms"] / one_ms,
+            "top": busy["top"][:4],
+            "f32_decode_vs_forward": {
+                f"depth_{XLSTM_CHECK_DEPTH}": diffs[XLSTM_CHECK_DEPTH],
+                f"depth_{cfg.n_layers}": full},
+            "tol": {f"depth_{XLSTM_CHECK_DEPTH}": XLSTM_DECODE_TOL,
+                    f"depth_{cfg.n_layers}": PATH_TOL},
+            "first_row_tokens": stream[0, MOE_PREFIX:].tolist()}
+    print(json.dumps(line))
+    return line
+
+
+def phase_xlstm_f32() -> dict:
+    """Full-width xlstm-125m in f32 from the CPU's draws, on the card and
+    on the CPU: every position's logits of an ``XLSTM_F32_LEN``-token
+    forward, within
+    ``ATTN_TOL``'s f32 3e-5 on the first ``XLSTM_CHECK_DEPTH`` blocks
+    and at ``PATH_TOL`` at full depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    model = build_model(get_config(XLSTM_ARCH).with_(dtype="float32"))
+    tokens = make_pipeline(model.cfg, 1, XLSTM_F32_LEN).batch_at(0)["tokens"]
+    cpu = model.init(seed=0, device="cpu")
+    weights = {"cuda": tree_map(lambda t: t.cuda(), cpu), "cpu": cpu}
+    tol = ATTN_TOL[torch.float32]
+    outs, ms = {}, {}
+    with torch.no_grad():
+        for dev, params in weights.items():
+            t = torch.from_numpy(tokens).to(dev)
+            for depth in (XLSTM_CHECK_DEPTH, model.cfg.n_layers):
+                m, p = xlstm_depth(model, params, depth)
+                t0 = time.perf_counter()
+                outs[dev, depth] = m.head(p, m.forward(
+                    p, {"tokens": t})).cpu()
+                ms[f"{dev}_depth_{depth}"] = (time.perf_counter() - t0) * 1e3
+    del weights, cpu
+    short = (outs["cuda", XLSTM_CHECK_DEPTH], outs["cpu", XLSTM_CHECK_DEPTH])
+    if not torch.allclose(*short, **tol):
+        fail(f"xlstm f32 depth {XLSTM_CHECK_DEPTH}: card vs cpu "
+             f"{logits_diff('xlstm f32', *short)} (tol {tol})")
+    full = check_logits("xlstm f32 card vs cpu, full depth",
+                        outs["cuda", model.cfg.n_layers],
+                        outs["cpu", model.cfg.n_layers])
+    line = {"phase": "xlstm_f32", "arch": model.cfg.name,
+            "tokens": XLSTM_F32_LEN, "card_vs_cpu": {
+                f"depth_{XLSTM_CHECK_DEPTH}": logits_diff("xlstm f32",
+                                                          *short),
+                f"depth_{model.cfg.n_layers}": full},
+            "tol": {f"depth_{XLSTM_CHECK_DEPTH}": tol,
+                    f"depth_{model.cfg.n_layers}": PATH_TOL}, "ms": ms,
+            "max_abs_logit": outs["cpu", model.cfg.n_layers].abs().max(
+                ).item()}
+    print(json.dumps(line))
+    return line
+
+
+def phase_small_xlstm(train) -> dict:
+    """The reduced xlstm-125m in f32 (2 layers: mLSTM, sLSTM) on the card
+    and on the CPU from the CPU's weights: the forward's last logits, a
+    4-token prefill and 4 teacher-forced decode steps within 3e-5; and
+    2 launcher steps (dense_reduce, identity wire) with losses within
+    rel 1e-4, as ``phase_small_reference``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    model = build_model(get_config(XLSTM_ARCH).reduced())
+    batch = make_pipeline(model.cfg, 2, 16).batch_at(0)
+    tol = ATTN_TOL[torch.float32]
+    outs = []
+    with torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            params = host_weights(model, 0, dev)
+            t = torch.from_numpy(batch["tokens"]).to(dev)
+            logits = [model.head(params, model.forward(
+                params, {"tokens": t})[:, -1])]
+            cache = model.init_cache(2, 8, device=dev)
+            lg, cache = model.prefill(params, cache, t[:, :4])
+            logits.append(lg)
+            for i in range(4, 8):
+                lg, cache = model.decode_step(params, cache, t[:, i:i + 1])
+                logits.append(lg)
+            outs.append([x.cpu() for x in logits])
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(*outs)):
+        err = (a - c).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, c, **tol):
+            fail(f"small xlstm: output {i} card vs cpu max abs err {err}")
+    args = ["--arch", XLSTM_ARCH, "--reduced", "--dist", "horovod",
+            "--grad-accum", "dense_reduce", "--batch-per-worker", "4",
+            "--seq-len", "32", "--steps", "2", "--log-every", "1"]
+    quiet = lambda s: None
+    with host_drawn_init():
+        card = train.run(args + ["--device", "cuda"], log=quiet)["history"]
+    cpu = train.run(args + ["--device", "cpu"], log=quiet)["history"]
+    lc, lh = [h["loss"] for h in card], [h["loss"] for h in cpu]
+    if len(lc) != 2 or not all(math.isclose(x, y, rel_tol=1e-4)
+                               for x, y in zip(lc, lh)):
+        fail(f"small xlstm: card losses {lc} vs cpu {lh}")
+    line = {"phase": "small_xlstm", "outputs": len(outs[0]),
+            "max_abs_err": worst, "tol": tol, "card_losses": lc,
+            "cpu_losses": lh}
+    print(json.dumps(line))
+    return line
 
 
 def main() -> int:
@@ -4154,7 +4680,8 @@ def main() -> int:
     dpre = clock("dense_prefill", phase_prefill, glm, params, FA,
                  "dense_prefill")
     clock("dense_f32", phase_f32_prefill, glm, params, K, FA, "dense_f32")
-    clock("dense_serve", phase_serve, glm, params, FA, "dense_serve")
+    clock("dense_serve", phase_serve, glm, params, FA, "dense_serve",
+          SHORT_PROMPT)
     del params
     torch.cuda.empty_cache()
     vlm = build_model(get_config("internvl2-1b"))
@@ -4184,6 +4711,37 @@ def main() -> int:
     clock("small_hybrid", phase_small_hybrid, K)
     clock("small_dense", phase_small_dense)
     clock("small_moe", phase_small_moe, FA)
+    torch.cuda.empty_cache()
+    dsv2 = build_model(get_config(MLA_ARCH).with_(n_layers=MLA_DEPTH))
+    params = clock("mla_init", phase_init, dsv2)
+    clock("mla_prefill", phase_mla_prefill, dsv2, params, FA)
+    clock("mla_decode", phase_moe_decode, dsv2, params, FA, "mla_decode",
+          MLA_DECODE_MODES)
+    clock("mla_serve", phase_serve, dsv2, params, FA, "mla_serve",
+          SHORT_PROMPT)
+    del params
+    torch.cuda.empty_cache()
+    clock("mla_wide_f32", phase_mla_wide_f32, FA)
+    mla_path = clock("mla_path", phase_path, train, D, comm, MLA_ARCH,
+                     (("dense_reduce", 3), ("sparse_gather", 1)), "mla_path",
+                     ("--reduced",))
+    small_mla = clock("small_mla", phase_small_moe, FA, MLA_ARCH,
+                      "small_mla", SMALL_MLA_STEPS)
+    torch.cuda.empty_cache()
+    xlstm = build_model(get_config(XLSTM_ARCH))
+    params = clock("xlstm_init", phase_init, xlstm)
+    clock("xlstm_prefill", phase_xlstm_prefill, xlstm, params)
+    clock("xlstm_decode", phase_xlstm_decode, xlstm, params)
+    clock("xlstm_serve", phase_serve, xlstm, params, FA, "xlstm_serve",
+          SHORT_PROMPT)
+    del params
+    torch.cuda.empty_cache()
+    clock("xlstm_f32", phase_xlstm_f32)
+    xlstm_path = clock("xlstm_path", phase_path, train, D, comm, XLSTM_ARCH,
+                       (("dense_reduce", 3), ("sparse_gather", 1)),
+                       "xlstm_path", ("--batch-per-worker", "2"), False)
+    clock("small_xlstm", phase_small_xlstm, train)
+    small_flash = small_mla["flash_launches_by_variant"]
     print(json.dumps({"kernels": [{
         "name": "densify", "route": "cuda",
         "source": "src/repro_torch/csrc/densify.cu",
@@ -4191,7 +4749,8 @@ def main() -> int:
         "launches": path["densify_launches"] + codec["densify_launches"]
         + overlap["launches"]["densify"] + backends["launches"]["densify"]
         + zero1["launches"]["densify"] + dense_path["densify_launches"]
-        + seamless_path["densify_launches"] + moe_path["densify_launches"],
+        + seamless_path["densify_launches"] + moe_path["densify_launches"]
+        + mla_path["densify_launches"] + xlstm_path["densify_launches"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
@@ -4200,7 +4759,9 @@ def main() -> int:
                               "dense_path": dense_path["densify_launches"],
                               "seamless_path":
                                   seamless_path["densify_launches"],
-                              "moe_path": moe_path["densify_launches"]},
+                              "moe_path": moe_path["densify_launches"],
+                              "mla_path": mla_path["densify_launches"],
+                              "xlstm_path": xlstm_path["densify_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -4208,13 +4769,15 @@ def main() -> int:
         "f32": {k: kern["f32"][k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-        # the counts spilled to the workspace (vocab > 51,199)
+        # the configs' training shapes: counts spilled to the workspace
+        # (vocab > 51,199), but for xlstm-125m's 50304 (shared memory)
         **{f"vocab_{kern['vocabs'][c]['shape']['vocab']}": {
             k: kern["vocabs"][c][k] for k in (
                 "kernel_ms", "group_rows_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")}
            for c in ("llama3.2-1b_bf16", "seamless-m4t-large-v2_bf16",
-                     "llama4-scout-17b-a16e_bf16")}}, {
+                     "llama4-scout-17b-a16e_bf16", "deepseek-v2-236b_bf16",
+                     "xlstm-125m_bf16")}}, {
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:29",
@@ -4273,7 +4836,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": prefill["launches"] + trans["launches"]
         + hpre["flash_launches_per_forward"] + dpre["launches"]
-        + vpre["launches"] + mpre["launches"],
+        + vpre["launches"] + mpre["launches"] + sum(small_flash.values()),
         "sources": ["src/repro_torch/csrc/flash_attention_sm90.cu",
                     "src/repro_torch/csrc/flash_attention.cu"],
         "launches_by_variant": {
@@ -4282,14 +4845,17 @@ def main() -> int:
             + hpre["flash_launches_by_variant"][k]
             + dpre["launches_by_variant"][k]
             + vpre["launches_by_variant"][k]
-            + mpre["launches_by_variant"][k]
+            + mpre["launches_by_variant"][k] + small_flash[k]
             for k in prefill["launches_by_variant"]},
         "launches_by_phase": {
             "prefill": prefill["launches"], "translate": trans["launches"],
             "hybrid_prefill": hpre["flash_launches_per_forward"],
             "dense_prefill": dpre["launches"],
             "vlm_prefill": vpre["launches"],
-            "moe_prefill": mpre["launches"]},
+            "moe_prefill": mpre["launches"],
+            # Dv != D: the chunked route (0); the reduced MLA's D = 32
+            # in f32 on "simt"
+            "mla_prefill": 0, "small_mla": sum(small_flash.values())},
         "max_abs_err": akern["max_abs_err"],
         "ms": akern["prefill_self"]["kernel_ms"],
         "mma_ms": akern["prefill_self"]["mma_ms"],

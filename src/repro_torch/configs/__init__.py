@@ -1,2 +1,3 @@
 from repro_torch.configs.base import (ARCH_IDS, ArchConfig, FrontendConfig,
-                                      MoEConfig, SSMConfig, get_config)
+                                      MLAConfig, MoEConfig, SSMConfig,
+                                      XLSTMConfig, get_config)

@@ -4,7 +4,8 @@ Mirrors ``repro.configs.base`` for the fields the ported model path
 reads.  ``reduced()`` derives the CPU test variant exactly as the
 reference does (<=2 layers, or 4 with ``attn_every`` 2 for the hybrid
 family; d_model<=128, vocab<=512, float32; 4 experts of 64 for the moe
-family), so both packages build the same shapes from the same config.
+family; MLA's latent at 32 with 16 + 16 q·k and 32 v head dims), so
+both packages build the same shapes from the same config.
 """
 from __future__ import annotations
 
@@ -24,12 +25,28 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora: int               # compressed kv dim (c_kv)
+    q_lora: int = 0            # 0 = full-rank q projection
+    rope_dim: int = 64         # per-head rope sub-dim (shared key rope)
+    nope_dim: int = 128        # per-head non-rope sub-dim
+    v_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     state_dim: int             # N
     head_dim: int = 64         # P
     expand: int = 2
     conv_dim: int = 4
     chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 4       # block i is sLSTM iff i % slstm_every == 1
+    mlstm_expand: int = 2
+    slstm_ff_mult: float = 1.3333
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +59,8 @@ class FrontendConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                # this port: audio (enc-dec) | dense |
-                               # hybrid | moe | vlm
+    family: str                # audio (enc-dec) | dense | hybrid |
+                               # moe (with mla: deepseek-v2) | ssm | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -61,7 +78,9 @@ class ArchConfig:
     sliding_window: Optional[int] = None
     attn_every: Optional[int] = None       # hybrid: shared attn block period
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     frontend: Optional[FrontendConfig] = None
 
     @property
@@ -92,6 +111,9 @@ class ArchConfig:
             kw["moe"] = dataclasses.replace(
                 self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
                 d_ff_expert=64, n_shared=min(self.moe.n_shared, 1))
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(kv_lora=32, q_lora=0, rope_dim=16,
+                                  nope_dim=16, v_dim=32)
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, state_dim=16,
                                             head_dim=16, chunk=32)
@@ -102,7 +124,8 @@ class ArchConfig:
 
 ARCH_IDS = ("zamba2-7b", "seamless-m4t-large-v2", "qwen2.5-32b",
             "deepseek-7b", "llama3.2-1b", "llama4-scout-17b-a16e",
-            "internvl2-1b", "chatglm3-6b", "transformer-big")
+            "deepseek-v2-236b", "internvl2-1b", "xlstm-125m",
+            "chatglm3-6b", "transformer-big")
 
 
 def get_config(arch_id: str) -> ArchConfig:

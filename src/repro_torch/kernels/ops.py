@@ -138,11 +138,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``i + Sk - Sq``.  ``impl`` as in the module docstring; ``block_k``
     sets the chunk of ``"chunked"`` (4096 keys by default, never more
     than Sk rounded up to 8).  Under ``"kernel"`` mixed head dims
-    (Dv != D) run the plain version on CPU tensors and raise on CUDA
-    tensors: the kernel takes Dv == D only, and nothing falls back."""
+    (Dv != D, MLA) take ``"chunked"`` on every device, as the reference
+    sends them from its Pallas impl to ``xla_chunked``: the route is
+    chosen from the shapes before any launch (the kernel itself takes
+    Dv == D only)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"flash_attention: impl {impl!r} not in "
                          f"{ATTN_IMPLS}")
+    if impl == "kernel" and v.shape[-1] != q.shape[-1]:
+        impl = "chunked"
     if impl == "ref":
         h = q.shape[2]
         return ref.attention_ref(q, _expand_kv(k, h), _expand_kv(v, h),

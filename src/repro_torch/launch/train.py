@@ -55,8 +55,8 @@ from repro_torch.core import (DistributedOptimizer, ExchangeConfig,
 from repro_torch.data import make_pipeline
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, noam_schedule
-from repro_torch.training import (Trainer, TrainerConfig,
-                                  grad_contributions, make_train_step)
+from repro_torch.training import Trainer, TrainerConfig, make_train_step
+from repro_torch.training.gradients import wait_free_contribution_structs
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -192,15 +192,18 @@ def pod_groups(rank: int, world: int):
 def meta_worker_grads(args, model, pipe, sparse_embedding: bool):
     """One worker's gradient-contribution tree on ``meta`` tensors (no
     memory, no compute): the structure the ExchangePlan and its
-    ExchangeState are keyed on."""
+    ExchangeState are keyed on, the one ``grad_contributions`` returns,
+    built from the parameters' shapes and the batch's token count
+    without a forward or backward pass (on meta tensors those still cost
+    the host every eager operation of a step, a recurrence's included)."""
     meta = torch.device("meta")
     batch = {k: torch.empty((args.batch_per_worker,) + v.shape[1:],
                             dtype=torch.from_numpy(v[:0]).dtype,
                             device=meta)
              for k, v in pipe.batch_at(0).items()}
-    grads, _, _ = grad_contributions(model, model.init(device=meta), batch,
-                                     sparse_embedding=sparse_embedding)
-    return grads
+    return wait_free_contribution_structs(
+        model, model.init(device=meta), batch,
+        sparse_embedding=sparse_embedding)
 
 
 def run(argv=None, log: Optional[Callable[[str], None]] = None

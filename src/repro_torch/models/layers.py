@@ -8,6 +8,9 @@ the same function from the same parameters.
 
 The MoE FFN (``moe_ffn``) is plain PyTorch, as the reference's is plain
 jnp: a router, one-hot dispatch and combine, and batched expert matmuls.
+So is MLA (``init_mla``, ``mla_attention``, ``mla_attention_absorbed``:
+DeepSeek-V2's latent attention, its compressed cache and the absorbed
+decode).
 
 Attention without a cache dispatches through
 ``repro_torch.kernels.ops.flash_attention``, so ``attn_impl`` ("ref",
@@ -173,8 +176,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      ring: bool = False) -> torch.Tensor:
     """Attention of a few query rows over a KV cache, plain PyTorch.
 
-    q (B, s, H, D) with small s (decode: s = 1); cache (B, C, KV, D);
-    ``length`` (B,) tokens written per slot INCLUDING the current ones.
+    q (B, s, H, D) with small s (decode: s = 1); cache k (B, C, KV, D),
+    v (B, C, KV, Dv) -> (B, s, H, Dv); ``length`` (B,) tokens written per
+    slot INCLUDING the current ones.
     ring: the cache holds the last C tokens and every written slot is in
     the window.  Otherwise slot == position: slots at or past the row's
     own count are masked, and with ``window`` so are slots ``window`` or
@@ -197,7 +201,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     p_ = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgsc,bckd->bskgd", p_.to(q.dtype), v_cache)
-    return out.reshape(b, s, h, d)
+    # the value head dim: the reference reshapes to q's, which raises at
+    # Dv != D (MLA's naive decode)
+    return out.reshape(b, s, h, v_cache.shape[-1])
 
 
 def init_cross_attention(gen, cfg: ArchConfig, device) -> Params:
@@ -227,6 +233,146 @@ def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     out = kops.flash_attention(q, k, v, causal=False, window=None,
                                impl=attn_impl)
     return out.reshape(b, s, h * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ArchConfig, device) -> Params:
+    """Full-rank q (d, H * (nope + rope)); the kv compression ``w_dkv``
+    (d, kv_lora) with its RMSNorm; ONE rope key head ``w_kr`` (d, rope)
+    shared by every head; the up-projections ``w_uk`` (kv_lora, H *
+    nope) and ``w_uv`` (kv_lora, H * v); ``wo`` (H * v, d)."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dt = _dtype(cfg)
+    qd = m.nope_dim + m.rope_dim
+    return {"wq": dense_init(gen, (d, h * qd), device, dtype=dt),
+            "w_dkv": dense_init(gen, (d, m.kv_lora), device, dtype=dt),
+            "w_kr": dense_init(gen, (d, m.rope_dim), device, dtype=dt),
+            "w_uk": dense_init(gen, (m.kv_lora, h * m.nope_dim), device,
+                               dtype=dt),
+            "w_uv": dense_init(gen, (m.kv_lora, h * m.v_dim), device,
+                               dtype=dt),
+            "wo": dense_init(gen, (h * m.v_dim, d), device, dtype=dt),
+            "norm_ckv": init_rmsnorm(m.kv_lora, dt, device)}
+
+
+def _mla_project(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """(q_nope (B, s, H, nope), roped q_rope (B, s, H, rope), normed c_kv
+    (B, s, kv_lora), roped shared key k_rope (B, s, rope))."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, m.nope_dim + m.rope_dim)
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rmsnorm(p["norm_ckv"], x @ p["w_dkv"], cfg.norm_eps)
+    kr = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, kr
+
+
+def _mla_cache_update(kv_cache: Dict[str, Any], ckv: torch.Tensor,
+                      kr: torch.Tensor, window: Optional[int], s: int):
+    cache_len = kv_cache["ckv"].shape[1]
+    pos0 = kv_cache["length"]
+    ring = bool(kv_cache.get("ring", window is not None))
+    slot = pos0 % cache_len if ring else pos0
+    return {"ckv": _batched_update(kv_cache["ckv"], ckv, slot),
+            "kr": _batched_update(kv_cache["kr"], kr, slot),
+            "length": pos0 + s, "ring": ring}
+
+
+def mla_attention_absorbed(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                           positions: torch.Tensor,
+                           kv_cache: Dict[str, Any],
+                           window: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Absorbed-matrix MLA decode (DeepSeek-V2 §2.1): scores and context
+    in the compressed kv_lora space,
+
+        scores = (q_nope W_uk) . c_kv  +  q_rope . k_rope
+        out    = (softmax . c_kv) W_uv W_o,
+
+    with the per-row causal mask, ring and window of
+    ``decode_attention``.  The reference accumulates every product in
+    f32 (``preferred_element_type``) and promotes ``f32 @ bf16`` to f32;
+    PyTorch takes neither, so the operands are cast on purpose: q W_uk
+    in f32, cast to x's dtype; scores, context and the W_uv product in
+    f32 over an f32 copy of the cache (B, C, kv_lora + rope); the
+    probabilities and the output cast to x's dtype where the reference
+    casts them."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    f32 = torch.float32
+    q_nope, q_rope, ckv, kr = _mla_project(p, cfg, x, positions)
+    new_cache = _mla_cache_update(kv_cache, ckv, kr, window, s)
+    ckv_c = new_cache["ckv"].to(f32)
+    kr_c = new_cache["kr"].to(f32)
+    cache_len = ckv_c.shape[1]
+    w_uk = p["w_uk"].reshape(m.kv_lora, h, m.nope_dim).to(f32)
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope.to(f32),
+                         w_uk).to(x.dtype)
+    scores = (torch.einsum("bshl,bSl->bhsS", q_abs.to(f32), ckv_c)
+              + torch.einsum("bshr,bSr->bhsS", q_rope.to(f32), kr_c))
+    scores = scores * (m.nope_dim + m.rope_dim) ** -0.5
+    slots = torch.arange(cache_len, device=x.device)
+    newlen = torch.broadcast_to(new_cache["length"], (b,))
+    qpos = newlen[:, None] - s + 1 + torch.arange(s, device=x.device)
+    valid = slots[None, None, :] < torch.clamp(qpos, max=cache_len)[
+        :, :, None]
+    if not new_cache["ring"] and window is not None:
+        valid = valid & (slots[None, None, :] >= (qpos - window)[:, :, None])
+    scores = torch.where(valid[:, None], scores, NEG_INF)
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhsS,bSl->bshl", attn.to(f32), ckv_c)
+    w_uv = p["w_uv"].reshape(m.kv_lora, h, m.v_dim).to(f32)
+    out = torch.einsum("bshl,lhv->bshv", ctx, w_uv)
+    out = out.reshape(b, s, h * m.v_dim).to(x.dtype)
+    return out @ p["wo"], new_cache
+
+
+def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                  positions: torch.Tensor,
+                  kv_cache: Optional[Dict[str, Any]] = None,
+                  window: Optional[int] = None, attn_impl: str = "chunked",
+                  absorbed: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """MLA: the cache holds the COMPRESSED c_kv and the shared rope key,
+    {"ckv": (B, C, kv_lora), "kr": (B, C, rope), "length", "ring"}.
+    With a cache the decode is absorbed by default
+    (``mla_attention_absorbed``); ``absorbed=False`` decompresses the
+    cache into per-head keys (nope + rope) and values and runs
+    ``decode_attention``.  Without a cache: causal attention through
+    ``ops.flash_attention(impl=attn_impl)``, which takes q·k head dim
+    nope + rope and v head dim ``v_dim`` (at Dv != D "kernel" takes the
+    chunked route)."""
+    if kv_cache is not None and absorbed:
+        return mla_attention_absorbed(p, cfg, x, positions, kv_cache,
+                                      window=window)
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope, ckv, kr = _mla_project(p, cfg, x, positions)
+    new_cache = None
+    if kv_cache is not None:
+        new_cache = _mla_cache_update(kv_cache, ckv, kr, window, s)
+        ckv, kr = new_cache["ckv"], new_cache["kr"]
+    k_nope = (ckv @ p["w_uk"]).reshape(b, -1, h, m.nope_dim)
+    vv = (ckv @ p["w_uv"]).reshape(b, -1, h, m.v_dim)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(
+        k_nope.shape[:3] + (m.rope_dim,))], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    if kv_cache is not None:
+        out = decode_attention(qf, k, vv, length=new_cache["length"],
+                               window=window, ring=new_cache["ring"])
+    else:
+        out = kops.flash_attention(qf, k, vv, causal=True, window=window,
+                                   impl=attn_impl)
+    return out.reshape(b, s, h * m.v_dim) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,12 @@
   moe     the dense skeleton with a routed MoE FFN and shared experts
           (llama4-scout): grouped capacity dispatch in training and the
           prefill step, dropless (or ``moe_mode="capacity"``) in decode;
-          the router's load-balance loss joins the training loss
+          the router's load-balance loss joins the training loss; with
+          ``cfg.mla`` the attention is DeepSeek-V2's latent attention
+          (deepseek-v2), its cache the compressed c_kv and rope key
+  ssm     xLSTM (xlstm-125m): block i is sLSTM iff i % slstm_every == 1,
+          else mLSTM; every layer holds both blocks' parameters, as the
+          reference's stacked layout does, and uses one
   hybrid  Zamba2: a Mamba2 stack with ONE shared attention block applied
           after every ``attn_every`` Mamba2 blocks (training through the
           differentiable ``ssd_chunked``, as the reference trains it; the
@@ -37,9 +42,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.tree import tree_flatten, tree_unflatten
 
-FAMILIES = ("audio", "dense", "hybrid", "moe", "vlm")
+FAMILIES = ("audio", "dense", "hybrid", "moe", "ssm", "vlm")
 MOE_MODES = ("dropless", "capacity")
 
 Params = Dict[str, Any]
@@ -49,7 +55,9 @@ def _init_block(gen, cfg: ArchConfig, device) -> Params:
     dt = L._dtype(cfg)
     p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, dt, device),
                  "norm2": L.init_rmsnorm(cfg.d_model, dt, device),
-                 "attn": L.init_attention(gen, cfg, device),
+                 "attn": (L.init_mla(gen, cfg, device)
+                          if cfg.mla is not None
+                          else L.init_attention(gen, cfg, device)),
                  "ffn": (L.init_moe(gen, cfg, device) if cfg.moe is not None
                          else L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt,
                                          device))}
@@ -64,8 +72,9 @@ def _block(p: Params, cfg: ArchConfig, x: torch.Tensor,
            enc: Optional[torch.Tensor], window: Optional[int],
            attn_impl: str, moe_mode: str = "dropless"
            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Pre-norm self-attention (cached when ``cache`` is given),
-    cross-attention to ``enc`` and the FFN: SwiGLU, or the MoE FFN.
+    """Pre-norm self-attention (MLA where the config has it; cached when
+    ``cache`` is given), cross-attention to ``enc`` and the FFN: SwiGLU,
+    or the MoE FFN.
     Returns (x, new cache, the MoE aux loss: zero without experts).
 
     MoE without a cache (training, the prefill step): grouped capacity
@@ -73,10 +82,11 @@ def _block(p: Params, cfg: ArchConfig, x: torch.Tensor,
     ``moe_mode="capacity"`` one group of the t = B*s decode tokens with
     ``cap = min(max(8, ceil(4 t k / E)), t)``, four times the balanced
     load."""
-    a, new_cache = L.attention(p["attn"], cfg,
-                               L.rmsnorm(p["norm1"], x, cfg.norm_eps),
-                               positions, kv_cache=cache, window=window,
-                               attn_impl=attn_impl)
+    attn_fn = L.mla_attention if cfg.mla is not None else L.attention
+    a, new_cache = attn_fn(p["attn"], cfg,
+                           L.rmsnorm(p["norm1"], x, cfg.norm_eps),
+                           positions, kv_cache=cache, window=window,
+                           attn_impl=attn_impl)
     x = x + a
     if enc is not None and "xattn" in p:
         x = x + L.cross_attention(p["xattn"], cfg,
@@ -164,6 +174,11 @@ class Model:
                 device)
             params["shared_attn"] = _init_block(gen, cfg,
                                                 device)    # ONE shared
+        elif cfg.family == "ssm":
+            params["mlstm"] = _stacked(
+                cfg.n_layers, lambda: X.init_mlstm(gen, cfg, device), device)
+            params["slstm"] = _stacked(
+                cfg.n_layers, lambda: X.init_slstm(gen, cfg, device), device)
         else:
             params["layers"] = _stacked(
                 cfg.n_layers, lambda: _init_block(gen, cfg, device), device)
@@ -173,8 +188,9 @@ class Model:
         """Top-level parameter blocks in backward-emission order: the hook
         boundaries of the wait-free exchange
         (``ExchangeConfig(overlap="backward")``).  A stacked layer tree
-        (``layers``, ``mamba``) gets its gradient in one piece once the
-        last layer's backward is done, so the top-level groups are the
+        (``layers``, ``mamba``, ``mlstm``, ``slstm``) gets its gradient
+        in one piece once the last layer's backward is done, so the
+        top-level groups are the
         finest emission events; flattening is key-sorted and backward
         emits leaves in reverse flatten order, so the partition is the
         sorted keys, reversed (as ``repro.models.model.Model``)."""
@@ -208,7 +224,8 @@ class Model:
         (training, differentiable), "kernel" (the flash attention kernel,
         forward only: the prefill step) or "ref".  In the hybrid family
         it also routes the Mamba2 blocks' SSD scan: "kernel" through the
-        SSD kernel, the others through the plain ``ssd_chunked``."""
+        SSD kernel, the others through the plain ``ssd_chunked``; the ssm
+        family has no attention and ignores it."""
         cfg = self.cfg
         x = L.embed(params["embedding"], batch["tokens"], tap=taps)
         enc, n_prefix = None, 0
@@ -224,6 +241,8 @@ class Model:
         if cfg.family == "hybrid":
             x = self._hybrid_forward(params, x, positions, window,
                                      attn_impl)
+        elif cfg.family == "ssm":
+            x = self._xlstm_forward(params, x)
         else:
             for lp in _unstack(params["layers"]):
                 x, _, a = _block(lp, cfg, x, positions, None, enc, window,
@@ -252,6 +271,21 @@ class Model:
                        None, window, attn_impl)[0]
         for i in trailing:
             x = x + S.mamba2_forward(mamba[i], cfg, x, ssd_route=route)
+        return x
+
+    def _is_slstm(self, i: int) -> bool:
+        return i % self.cfg.xlstm.slstm_every == 1
+
+    def _xlstm_forward(self, params, x):
+        """Each layer adds its sLSTM or its mLSTM block's output; the
+        other block's parameters go unused (zero gradients)."""
+        cfg = self.cfg
+        for i, (pm, ps) in enumerate(zip(_unstack(params["mlstm"]),
+                                         _unstack(params["slstm"]))):
+            if self._is_slstm(i):
+                x = x + X.slstm_forward(ps, cfg, x)[0]
+            else:
+                x = x + X.mlstm_forward(pm, cfg, x)[0]
         return x
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -295,8 +329,12 @@ class Model:
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, cache_len: int, device="cuda") -> Dict:
-        """Zeros cache with "length": (B,) int32.  Audio, dense and vlm:
-        {"k", "v": (n_layers, B, cache_len, KV, HD)} in the model's dtype.
+        """A fresh cache with "length": (B,) int32.  Audio, dense, vlm and
+        moe: {"k", "v": (n_layers, B, cache_len, KV, HD)} in the model's
+        dtype, zeros; with MLA {"ckv": (n_layers, B, cache_len, kv_lora),
+        "kr": (n_layers, B, cache_len, rope_dim)}.  Ssm: "mlstm" and "slstm",
+        each block's f32 recurrent state stacked over n_layers (every
+        layer has both, as the reference's); ``cache_len`` unused.
         Hybrid: "mamba", each Mamba2 block's recurrent cache stacked over
         n_layers (``ssm.mamba2_init_cache``), and "attn": {"k", "v":
         (n_segments, B, cache_len, KV, HD)}, one per use of the shared
@@ -305,6 +343,19 @@ class Model:
         cfg = self.cfg
         dt = L._dtype(cfg)
         length = torch.zeros((batch,), dtype=torch.int32, device=device)
+        if cfg.family == "ssm":
+            return {"length": length,
+                    "mlstm": _repeated(cfg.n_layers, X.mlstm_init_state(
+                        cfg, batch, device)),
+                    "slstm": _repeated(cfg.n_layers, X.slstm_init_state(
+                        cfg, batch, device))}
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"length": length,
+                    "ckv": torch.zeros((cfg.n_layers, batch, cache_len,
+                                        m.kv_lora), dtype=dt, device=device),
+                    "kr": torch.zeros((cfg.n_layers, batch, cache_len,
+                                       m.rope_dim), dtype=dt, device=device)}
         n_kv = cfg.n_layers
         if cfg.family == "hybrid":
             n_kv = cfg.n_layers // cfg.attn_every
@@ -382,16 +433,20 @@ class Model:
         if cfg.family == "hybrid":
             x, cache = self._hybrid_decode(params, cache, x, positions, enc,
                                            window, attn_impl, ring)
+        elif cfg.family == "ssm":
+            x, cache = self._xlstm_decode(params, cache, x)
         else:
-            ks, vs = [], []
+            names = ("ckv", "kr") if cfg.mla is not None else ("k", "v")
+            new = {name: [] for name in names}
             for i, lp in enumerate(_unstack(params["layers"])):
-                lc = {"k": cache["k"][i], "v": cache["v"][i],
-                      "length": length, "ring": ring}
-                x, nc, _ = _block(lp, cfg, x, positions, lc, enc, window,
-                                  attn_impl, moe_mode=moe_mode)
-                ks.append(nc["k"])
-                vs.append(nc["v"])
-            cache = {**cache, "k": torch.stack(ks), "v": torch.stack(vs)}
+                lc = {name: cache[name][i] for name in names}
+                x, nc, _ = _block(lp, cfg, x, positions,
+                                  {**lc, "length": length, "ring": ring},
+                                  enc, window, attn_impl, moe_mode=moe_mode)
+                for name in names:
+                    new[name].append(nc[name])
+            cache = {**cache, **{name: torch.stack(t)
+                                 for name, t in new.items()}}
         step = n_valid if n_valid is not None else s
         cache = {**cache, "length": (length + step).to(length.dtype)}
         logits = self.head(params, L.rmsnorm(params["final_norm"], x,
@@ -428,13 +483,42 @@ class Model:
         return x, {**cache, "mamba": stacked,
                    "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
+    def _xlstm_decode(self, params, cache, x):
+        """The s tokens of x through each layer's block from its carried
+        state (the other block's state passes through).  Returns (x,
+        cache with new "mlstm" and "slstm")."""
+        cfg = self.cfg
+        new_m, new_s = _unstack(cache["mlstm"]), _unstack(cache["slstm"])
+        for i, (pm, ps) in enumerate(zip(_unstack(params["mlstm"]),
+                                         _unstack(params["slstm"]))):
+            if self._is_slstm(i):
+                y, new_s[i] = X.slstm_forward(ps, cfg, x, state=new_s[i])
+            else:
+                y, new_m[i] = X.mlstm_forward(pm, cfg, x, state=new_m[i])
+            x = x + y
+        return x, {**cache,
+                   "mlstm": {k: torch.stack([st[k] for st in new_m])
+                             for k in cache["mlstm"]},
+                   "slstm": {k: torch.stack([st[k] for st in new_s])
+                             for k in cache["slstm"]}}
+
+
+def _repeated(n: int, one: Dict[str, torch.Tensor]) -> Dict:
+    """``one``'s leaves repeated on a new leading axis of ``n``."""
+    return {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in one.items()}
+
 
 def _cache_len(cache: Dict) -> int:
-    """The cache's sequence length, from a KV leaf: (L, B, C, ...) or, in
-    the hybrid cache, (n_segments, B, C, KV, HD)."""
-    if "k" in cache:
-        return cache["k"].shape[2]
-    return cache["attn"]["k"].shape[2]
+    """The cache's sequence length, from a KV leaf: (L, B, C, ...), MLA's
+    (L, B, C, kv_lora) or, in the hybrid cache, (n_segments, B, C, KV,
+    HD); 1 for the ssm cache, which has no length-shaped leaf (as the
+    reference's)."""
+    for key in ("k", "ckv"):
+        if key in cache:
+            return cache[key].shape[2]
+    if "attn" in cache:
+        return cache["attn"]["k"].shape[2]
+    return 1
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -157,8 +157,9 @@ def test_attention_ref_zeroes_fully_masked_rows():
 
 def test_mixed_head_dims_take_the_chunked_path():
     """MLA-style v head dim != qk head dim: the reference's pallas impl
-    sends it to its chunked path; the port's kernel impl on CPU tensors
-    computes it in the plain version (the CUDA kernel refuses Dv != D)."""
+    sends it to its chunked path, and the port's kernel impl sends it to
+    ``chunked_attention`` on every device, decided from the shapes (the
+    CUDA kernel itself refuses Dv != D)."""
     rng = np.random.default_rng(9)
     q, k = (rng.standard_normal((1, 16, 2, 48)).astype(np.float32)
             for _ in range(2))
@@ -168,6 +169,28 @@ def test_mixed_head_dims_take_the_chunked_path():
     want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
                               jnp.asarray(v), causal=True)
     np.testing.assert_allclose(_np(out), _np(want), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixed_head_dims_kernel_impl_is_bitwise_chunked(dtype):
+    """At Dv != D (deepseek-v2's 192 / 128 at reduced heads, GQA 2)
+    ``impl="kernel"`` returns ``impl="chunked"``'s result bitwise, and
+    the reference's pallas impl (its xla_chunked route) within F32."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 40, 4, 192)).astype(np.float32)
+    k = rng.standard_normal((2, 40, 2, 192)).astype(np.float32)
+    v = rng.standard_normal((2, 40, 2, 128)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=True, impl="kernel")
+    want = ops.flash_attention(tq, tk, tv, causal=True, impl="chunked")
+    assert got.dtype == tq.dtype and tuple(got.shape) == (2, 40, 4, 128)
+    assert torch.equal(got, want)
+    if dtype == "float32":
+        ref = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True,
+                                   impl="pallas")
+        np.testing.assert_allclose(_np(got), _np(ref), **F32)
 
 
 def test_bf16_queries_with_f32_keys_promote_like_the_reference():
