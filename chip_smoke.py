@@ -280,10 +280,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
                (8 requests, 16 greedy steps; f32 decode against the f32
                forward at 2e-4); ``xlstm_serve``; ``xlstm_f32`` (card
                against CPU, 256 tokens); ``xlstm_path`` (the launcher at
-               2 x 256 tokens a step, 3 steps of dense_reduce and 1 of
+               2 x 256 tokens a step, 2 steps of dense_reduce and 1 of
                sparse_gather, densify once a step at 50304 x 768); and
                ``small_xlstm`` (reduced, card against CPU, forward,
                decode and 2 launcher steps).
+ 13. serving — llama3.2-1b at full width in bf16 (1,235,814,400
+               parameters drawn on the card) behind ``ContinuousBatcher``:
+               8 slots of 1024 tokens on a pool of 96 blocks of 16 (the
+               dense cache is 512), chunked prefill of 64, 24 requests of
+               16-512 prompt tokens and 32 new at priorities 0 and 5, all
+               submitted before the first step: every request completes,
+               the pool runs dry and preempts, and after the 8th
+               completion an int8 hot swap (seed 1's weights) streams one
+               plan bucket a step, the live params untouched until one
+               version flip within n_buckets + 2 steps, then bitwise the
+               one-shot ``plan.broadcast``; the stateless quantize kernel
+               launches once a bucket (counters reset at the swap's start
+               and read at the flip), each launch bitwise
+               ``quantize_plain`` on its input, none of them plain; the
+               encodes of a swap timed as device time beside their byte
+               bound; a swap back at ``fusion_threshold`` = 128 MiB (f32
+               packs of several leaves) with the same launch checks;
+               steps, utilisation, ttft and tpot, wall ms a step, device
+               busy and idle share of one mixed step, ``gather_view`` and
+               ``writeback`` against ``decode_step`` in device ms, peak
+               memory; ``serving_f32``: the same model in f32, 8 prompts
+               of 16 tokens through the batcher and through one
+               ``ServeEngine.generate``, the emitted tokens' logits within
+               ``SERVE_F32_TOL``; ``small_serving``: the reduced
+               llama3.2-1b, deepseek-v2-236b, zamba2-7b and xlstm-125m
+               batchers on the card against the CPU and against
+               ``ServeEngine``, and a tiny pool that preempts.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -3878,7 +3905,7 @@ FULL_PARAMS = {"transformer-big": 160_365_568, "zamba2-7b": 6_750_840_528,
                "chatglm3-6b": 6_243_584_000, "internvl2-1b": 493_780_992,
                "llama4-scout-17b-a16e": 6_473_180_160,
                "deepseek-v2-236b": 9_153_243_136,
-               "xlstm-125m": 220_493_664}
+               "xlstm-125m": 220_493_664, "llama3.2-1b": 1_235_814_400}
 VLM_B, VLM_PROMPT = 2, 16          # requests and tokens of prefill(embeds=)
 
 
@@ -4611,6 +4638,526 @@ def phase_small_xlstm(train) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# serving: the paged continuous batcher and the int8 hot swap
+# ---------------------------------------------------------------------------
+
+SERVING_ARCH = "llama3.2-1b"
+# 8 slots of 1024 tokens in blocks of 16: the dense cache is 512 blocks
+# (256 MiB in bf16); the pool has 96 (48 MiB), short of the 24 requests'
+# load, so it runs dry and preempts; the longest request (512 + 32
+# tokens, 34 blocks) fits alone
+SERVING = dict(n_slots=8, cache_len=1024, block_size=16, n_blocks=96)
+SERVING_CHUNK, SERVING_REQUESTS, SERVING_NEW = 64, 24, 32
+SERVING_PROMPTS = (16, 512)        # prompt lengths drawn in this range
+SERVING_SWAP_AFTER = 8             # completions before the swap starts
+SERVING_FUSION = 128 << 20         # the paper's Horovod fusion buffer
+# the bound of a swap's encodes: one read of each bf16 leaf, one write of
+# its int8 values; the design reads each leaf twice (absmax, then q)
+SWAP_BOUND_BYTES, SWAP_DESIGN_BYTES = 3, 5
+# f32 exactness of the batcher against ServeEngine (the PR 25 rule, fixed
+# before the first run): every compared step's emitted logits within
+# these; a token may differ only where the engine's top-2 margin at that
+# step is below 2 x max_abs, and that request's later steps are not
+# compared (their inputs differ); such flips are counted
+SERVE_F32_TOL = dict(max_abs=1e-3, rel_l2=1e-4)
+SMALL_SERVE_TOL = dict(max_abs=1e-4, rel_l2=3e-5)
+SMALL_SERVE_ARCHS = ("llama3.2-1b", "deepseek-v2-236b", "zamba2-7b",
+                     "xlstm-125m")
+
+
+@contextlib.contextmanager
+def recorded_quantize(ops):
+    """Within the block every stateless encode that ``ops.quantize_int8``
+    launches is recorded as (input, q, scale), and every call of its
+    plain version on a CUDA tensor is counted (there must be none)."""
+    kernel, plain = ops.quantize_kernel, ops.quantize_plain
+    rec = {"launches": [], "plain_on_cuda": 0}
+
+    def launch(flat):
+        q, scale = kernel(flat)
+        rec["launches"].append((flat, q, scale))
+        return q, scale
+
+    def plain_version(flat):
+        rec["plain_on_cuda"] += int(flat.is_cuda)
+        return plain(flat)
+    ops.quantize_kernel, ops.quantize_plain = launch, plain_version
+    try:
+        yield rec
+    finally:
+        ops.quantize_kernel, ops.quantize_plain = kernel, plain
+
+
+def check_swap_launches(tag, Q, rec, plan) -> dict:
+    """The swap's encodes: exactly one stateless launch a plan bucket,
+    no fused encode, no decode-sum, no plain encode on the card, and
+    every launch's (q, scale) bitwise ``quantize_plain`` on its input."""
+    stateless = Q.quantize_kernel.launches - Q.quantize_ef_kernel.launches
+    n = len(plan.dense_buckets)
+    if (stateless, len(rec["launches"]), Q.quantize_ef_kernel.launches,
+            Q.decode_sum_kernel.launches, rec["plain_on_cuda"]) \
+            != (n, n, 0, 0, 0):
+        fail(f"{tag}: {stateless} stateless encodes ({len(rec['launches'])}"
+             f" recorded), {Q.quantize_ef_kernel.launches} fused, "
+             f"{Q.decode_sum_kernel.launches} decode-sums, "
+             f"{rec['plain_on_cuda']} plain encodes on the card for "
+             f"{n} buckets")
+    for i, (flat, q, scale) in enumerate(rec["launches"]):
+        pq, ps = Q.quantize_plain(flat)
+        if not (torch.equal(q, pq) and bits_equal(scale, ps)):
+            fail(f"{tag}: bucket {i} ({flat.numel()} {flat.dtype}) differs "
+                 f"from quantize_plain")
+    return {"buckets": n, "launches": stateless,
+            "bucket_elems": [int(f.numel()) for f, _, _ in rec["launches"]],
+            "bucket_dtypes": sorted({str(f.dtype).split(".")[-1]
+                                     for f, _, _ in rec["launches"]}),
+            "bitwise_vs_plain": True}
+
+
+def serving_requests(Request, vocab: int, n: int, lens, max_new: int,
+                     seed: int = 0):
+    """``n`` requests with prompt lengths in ``lens`` and priorities 0
+    and 5, drawn with numpy from ``seed``; EOS is never emitted (id -1),
+    so every request takes ``max_new`` tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for uid in range(n):
+        length = int(rng.integers(lens[0], lens[1] + 1))
+        out.append(Request(uid=uid, prompt=rng.integers(
+            3, vocab, (length,)).astype(np.int32), max_new=max_new,
+            priority=int(rng.choice([0, 5])), eos_id=-1))
+    return out
+
+
+def serving_device_ms(fn, iters: int):
+    """(ms, clock): the device time of one ``fn()`` as ``device_ms``
+    takes it (the CUDA-only profiler, tried twice), or, where the
+    profiler records no device time (as happened once late in a whole
+    run), CUDA events around ``iters`` calls, which count the host's
+    gaps between launches too: the parts of a host-bound step need the
+    profiler's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages())
+        if us > 0:
+            return us / iters / 1e3, "profiler"
+    print(json.dumps({"note": "torch.profiler recorded no device time: "
+                      "timed with CUDA events"}))
+    return cuda_ms(fn, iters, warmup=1), "cuda events"
+
+
+def swap_timing(Q, rec) -> dict:
+    """Time of one swap's encodes (every recorded bucket input through
+    the kernel, and through ``quantize_plain``), beside the bound and the
+    bytes the design moves.  CUDA events around back-to-back swaps: the
+    big buckets' launches queue behind each other (0.1-0.3 ms each), so
+    the host leaves the card no gap, and the events need no profiler
+    (on an H100, late in a whole run of this script, its records came
+    up short: a swap's encodes read 1.34 ms, under the design's 1.84 ms
+    byte bound, against 1.95-2.11 ms when the phase ran alone)."""
+    flats = [f for f, _, _ in rec["launches"]]
+    elems = sum(f.numel() for f in flats)
+    kernel_ms = cuda_ms(lambda: [Q.quantize_kernel(f) for f in flats], 5,
+                        warmup=1)
+    plain_ms = cuda_ms(lambda: [Q.quantize_plain(f) for f in flats], 2,
+                       warmup=1)
+    return {"elements": elems, "ms": kernel_ms, "plain_ms": plain_ms,
+            "clock": "cuda events",
+            "bound_ms": elems * SWAP_BOUND_BYTES / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bound_bytes": elems * SWAP_BOUND_BYTES,
+            "design_bytes": elems * SWAP_DESIGN_BYTES,
+            "design_bound_ms":
+                elems * SWAP_DESIGN_BYTES / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None}
+
+
+def step_parts_ms(cb, toks, n_valid) -> dict:
+    """Device ms of the batcher step's three parts on its current state,
+    each alone: ``gather_view``, ``decode_step`` on the view, and the
+    ``writeback`` of the (unchanged) view, which writes the pool rows it
+    read, so the state is left as it was."""
+    from repro_torch.serving.paged_cache import gather_view, writeback
+    pc = cb.paged
+    tables = pc.tables()
+    view = gather_view(pc.state, tables, pc._paged)
+    t = torch.as_tensor(toks, device="cuda")
+    nv = torch.as_tensor(n_valid, device="cuda")
+    slot_len = cb.slot_len.copy()
+    parts = {
+        "gather_view": lambda: gather_view(pc.state, tables, pc._paged),
+        "decode_step": lambda: cb.model.decode_step(cb.params, view, t,
+                                                    n_valid=nv),
+        "writeback": lambda: writeback(
+            pc.state, view, pc.block_tables, slot_len, n_valid,
+            toks.shape[1], pc._paged, pc.block_size, pc.n_blocks)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            out[name], out[f"{name}_clock"] = serving_device_ms(fn, 3)
+    return out
+
+
+def phase_serving(Q, ops) -> dict:
+    """Full-width llama3.2-1b in bf16 behind ``ContinuousBatcher``: 8
+    slots, 1024-token contexts, a pool of 96 blocks of 16, chunked
+    prefill of 64; 24 requests (16-512 prompt tokens, 32 new, priorities
+    0 and 5) submitted before the first step; after the 8th completion a
+    hot swap on the int8 wire (new weights from seed 1) streams one
+    bucket a step.  Checks: every request completes with 32 tokens,
+    preemptions > 0, the pool below the dense cache, one version flip
+    within n_buckets + 2 steps of the start with the live params
+    untouched until it, the flipped params bitwise the one-shot
+    ``plan.broadcast``, one stateless encode a bucket, each bitwise
+    ``quantize_plain``.  Then a swap back at ``fusion_threshold`` = 128
+    MiB (multi-slot f32 packs) with the same launch checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ContinuousBatcher, Request, SLOConfig,
+                                     dense_cache_bytes)
+    from repro_torch.tree import tree_flatten
+    model = build_model(get_config(SERVING_ARCH))
+    params = phase_init(model)
+    new = model.init(seed=1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cb = ContinuousBatcher(model, params, slo=SLOConfig(
+        prefill_chunk=SERVING_CHUNK), **SERVING)
+    reqs = serving_requests(Request, model.cfg.vocab, SERVING_REQUESTS,
+                            SERVING_PROMPTS, SERVING_NEW)
+    for r in reqs:
+        cb.submit(r)
+    step = cb.device_step
+    seen = {"mixed": False, "parts": None, "want_parts": False}
+
+    def device_step(toks, n_valid):
+        seen["mixed"] = bool((n_valid > 1).any() and (n_valid == 1).any())
+        if seen["want_parts"] and seen["mixed"]:
+            seen["parts"] = step_parts_ms(cb, toks, n_valid)
+            seen["want_parts"] = False
+            seen["measured"] = True
+        return step(toks, n_valid)
+    cb.device_step = device_step
+    done, walls, versions = [], [], []
+    swap = rec = busy = None
+    with contextlib.ExitStack() as stack:
+        t_run = time.perf_counter()
+        while True:
+            if busy is None and seen["parts"] is not None and seen["mixed"]:
+                res = {}
+                busy = top_device_kernels(
+                    lambda: res.setdefault("more", cb.step(done)))
+                more = res["more"]
+            else:
+                more, ms = timed(lambda: cb.step(done))
+                if not seen.pop("measured", False):
+                    walls.append((ms, seen["mixed"]))
+            if not more:
+                break
+            if swap is not None:
+                versions.append(cb.params_version)
+                if cb.params_version == 0 and cb.params is not params:
+                    fail("serving: live params replaced before the flip")
+            elif len(done) >= SERVING_SWAP_AFTER:
+                Q.reset_launches()
+                rec = stack.enter_context(recorded_quantize(ops))
+                swap = cb.begin_hot_swap(new, codec="int8")
+            if len(walls) == 4 and seen["parts"] is None:
+                # the parts are measured once, on the next mixed step
+                seen["want_parts"] = True
+        run_s = time.perf_counter() - t_run
+    # the run's peak: weights, the swap's new and staged trees, the
+    # recorded q of its encodes (1.2 GB), the pool and the steps' views
+    peak = torch.cuda.max_memory_allocated()
+    if swap is None or busy is None or seen["parts"] is None:
+        fail(f"serving: swap {swap is not None}, profiled step "
+             f"{busy is not None}, parts {seen['parts'] is not None}")
+    launches = check_swap_launches("serving swap", Q, rec, swap.plan)
+    if swap.n_buckets != len(tree_flatten(params)[0]):
+        fail(f"serving: {swap.n_buckets} buckets for "
+             f"{len(tree_flatten(params)[0])} leaves")
+    flips = sum(a != b for a, b in zip([0] + versions, versions))
+    to_flip = versions.index(1) + 1 if 1 in versions else None
+    if cb.params_version != 1 or flips != 1 or to_flip is None \
+            or to_flip > swap.n_buckets + 2:
+        fail(f"serving: version {cb.params_version}, {flips} flips, flip "
+             f"{to_flip} steps after the start ({swap.n_buckets} buckets)")
+    one_shot = swap.plan.broadcast(new, None)
+    for a, b in zip(tree_flatten(cb.params)[0], tree_flatten(one_shot)[0]):
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            fail("serving: the streamed params differ from the one-shot "
+                 "broadcast")
+    del one_shot
+    timing = swap_timing(Q, rec)
+    rec = None
+    _, swap_ms = timed(lambda: swap.plan.broadcast(new, None))
+    uids = sorted(r.uid for r in done)
+    if uids != list(range(SERVING_REQUESTS)) or any(
+            len(r.output) != SERVING_NEW
+            or not all(0 <= t < model.cfg.vocab for t in r.output)
+            for r in done):
+        fail(f"serving: completed {uids}, lengths "
+             f"{[len(r.output) for r in done]}")
+    m = cb.metrics
+    preempted = m.counter("sched/preempted").value
+    dense = dense_cache_bytes(model, SERVING["n_slots"],
+                              SERVING["cache_len"])
+    if preempted <= 0 or cb.paged.pool_bytes() >= dense:
+        fail(f"serving: {preempted} preemptions, pool "
+             f"{cb.paged.pool_bytes()} B against dense {dense} B")
+    # the swap back at the fusion buffer's threshold: multi-slot buckets
+    # take the f32 pack
+    Q.reset_launches()
+    with recorded_quantize(ops) as frec:
+        fused = cb.begin_hot_swap(params, codec="int8",
+                                  fusion_threshold=SERVING_FUSION)
+        cb.run()
+    fused_launches = check_swap_launches("serving fused swap", Q, frec,
+                                         fused.plan)
+    del frec
+    if cb.params_version != 2:
+        fail(f"serving: the fused swap left version {cb.params_version}")
+    mixed = [ms for ms, mx in walls if mx]
+    parts = seen["parts"]
+    steps = m.counter("sched/steps").value
+    line = {"phase": "serving", "arch": model.cfg.name,
+            "requests": SERVING_REQUESTS, "completed": len(done),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "new_tokens": SERVING_NEW, **SERVING,
+            "prefill_chunk": SERVING_CHUNK, "view_len": cb.paged.view_len,
+            "steps": steps, "tokens": m.counter("sched/tokens").value,
+            "preempted": preempted, "utilisation": cb.utilisation,
+            "ttft": m.histogram("serve/ttft").summary(),
+            "tpot": m.histogram("serve/tpot").summary(),
+            "run_s": run_s,
+            "wall_ms_per_step": statistics.mean(ms for ms, _ in walls),
+            "mixed_step_wall_ms": statistics.median(mixed) if mixed else None,
+            "mixed_steps": len(mixed),
+            # None: the profiler recorded no device time (not measured)
+            "profiled_step_device_busy_ms": busy["device_busy_ms"] or None,
+            "profiled_step_idle_share":
+                1 - busy["device_busy_ms"] / statistics.median(mixed)
+                if mixed and busy["device_busy_ms"] else None,
+            "profiled_step_top": busy["top"][:5],
+            "step_parts_device_ms": parts,
+            "gather_writeback_share_of_decode_step":
+                (parts["gather_view"] + parts["writeback"])
+                / parts["decode_step"],
+            "pool_bytes": cb.paged.pool_bytes(), "dense_cache_bytes": dense,
+            "swap": {"codec": "int8", "buckets": swap.n_buckets,
+                     "steps_to_flip": to_flip, "flips": flips,
+                     "bitwise_one_shot": True, **launches,
+                     "one_shot_wall_ms": swap_ms, "encodes": timing},
+            "fused_swap": {"fusion_threshold": SERVING_FUSION,
+                           **fused_launches},
+            "max_memory_allocated": peak}
+    print(json.dumps(line))
+    return line
+
+
+@contextlib.contextmanager
+def emitted_logits(cb):
+    """Within the block, the logits row behind every token ``cb`` emits,
+    by request uid in emission order (a slot emits where it has no prompt
+    left to feed: row ``n_valid - 1`` of its chunk)."""
+    step = cb.device_step
+    rows = {}
+
+    def device_step(toks, n_valid):
+        logits = step(toks, n_valid)
+        for s, req in enumerate(cb.slot_req):
+            if req is not None and n_valid[s] and not cb.slot_pending[s]:
+                row = logits[s, n_valid[s] - 1] if logits.dim() == 3 \
+                    else logits[s]
+                rows.setdefault(req.uid, []).append(row.float())
+        return logits
+    cb.device_step = device_step
+    try:
+        yield rows
+    finally:
+        cb.device_step = step
+
+
+@contextlib.contextmanager
+def engine_logits(model):
+    """Within the block, the logits of every ``model.decode_step`` call
+    (``ServeEngine.generate``'s prefill and decode steps)."""
+    calls = []
+    step = model.decode_step
+
+    def recorded(*a, **kw):
+        logits, cache = step(*a, **kw)
+        calls.append(logits.float())
+        return logits, cache
+    object.__setattr__(model, "decode_step", recorded)
+    try:
+        yield calls
+    finally:
+        object.__delattr__(model, "decode_step")
+
+
+def compare_emissions(tag, got, want, tol) -> dict:
+    """Tokens and their logits rows, request by request: every step up to
+    a request's first differing token within ``tol``; a differing token
+    only where ``want``'s top-2 margin there is below 2 x max_abs (then
+    that request's later steps are not compared).  ``got`` and ``want``
+    map uid -> (tokens, logits rows)."""
+    worst = {"max_abs": 0.0, "rel_l2": 0.0}
+    flips, steps = [], 0
+    if sorted(got) != sorted(want):
+        fail(f"{tag}: requests {sorted(got)} against {sorted(want)}")
+    for uid in sorted(want):
+        (gt, gl), (wt, wl) = got[uid], want[uid]
+        if len(gt) != len(wt) or len(gl) != len(gt) or len(wl) != len(wt):
+            fail(f"{tag}: request {uid}: {len(gt)} tokens, {len(gl)} rows "
+                 f"against {len(wt)}, {len(wl)}")
+        for i, (a, b) in enumerate(zip(gt, wt)):
+            d = logits_diff(f"{tag} request {uid} step {i}", gl[i], wl[i])
+            steps += 1
+            for k in worst:
+                worst[k] = max(worst[k], d[k])
+            if d["max_abs"] > tol["max_abs"] or d["rel_l2"] > tol["rel_l2"]:
+                fail(f"{tag}: request {uid} step {i} logits differ: {d} "
+                     f"(limits {tol})")
+            if a != b:
+                top2 = torch.topk(wl[i], 2).values
+                margin = (top2[0] - top2[1]).item()
+                if margin >= 2 * tol["max_abs"]:
+                    fail(f"{tag}: request {uid} step {i}: token {a} against"
+                         f" {b} with a top-2 margin of {margin}")
+                flips.append({"uid": uid, "step": i, "margin": margin})
+                break
+    return {"steps_compared": steps, "flips": flips, **worst, "tol": tol}
+
+
+def batcher_run(model, params, prompts, max_new, prefill_chunk, **kw):
+    """The prompts through a ``ContinuousBatcher``; returns (batcher,
+    {uid: (tokens, emitted logits rows)})."""
+    from repro_torch.serving import ContinuousBatcher, Request, SLOConfig
+    cb = ContinuousBatcher(model, params, slo=SLOConfig(
+        prefill_chunk=prefill_chunk), **kw)
+    for uid, p in enumerate(prompts):
+        cb.submit(Request(uid=uid, prompt=p, max_new=max_new))
+    with emitted_logits(cb) as rows:
+        done = cb.run()
+    if len(done) != len(prompts):
+        fail(f"batcher: {len(done)} of {len(prompts)} requests completed")
+    return cb, {r.uid: (list(r.output), rows[r.uid]) for r in done}
+
+
+def engine_run(model, params, prompts, max_new, cache_len) -> dict:
+    """Each prompt alone through ``ServeEngine.generate`` at
+    ``cache_len``: {uid: (tokens, emitted logits rows)}."""
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(model, params, cache_len=cache_len)
+    out = {}
+    for uid, p in enumerate(prompts):
+        with engine_logits(model) as calls:
+            toks = eng.generate(p[None], max_new=max_new)[0].tolist()
+        out[uid] = (toks, [c[0] for c in calls[len(p) - 1:
+                                                len(p) - 1 + len(toks)]])
+    return out
+
+
+def phase_serving_f32() -> dict:
+    """Full-width llama3.2-1b in f32 (seed 0's weights, widened): 8
+    prompts of ``SHORT_PROMPT`` tokens, 32 new, through the batcher (8
+    slots, chunked prefill of 8) and through one
+    ``ServeEngine.generate`` of all 8 at the batcher's ``view_len``,
+    held to each other by ``compare_emissions`` at ``SERVE_F32_TOL``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_map
+    model = build_model(get_config(SERVING_ARCH).with_(dtype="float32"))
+    params = tree_map(lambda t: t.float(),
+                      build_model(get_config(SERVING_ARCH)).init(
+                          seed=0, device="cuda"))
+    prompts = list(np.random.default_rng(6).integers(
+        3, model.cfg.vocab, (SERVE_B, SHORT_PROMPT)).astype(np.int32))
+    with torch.no_grad():
+        (cb, got), batcher_ms = timed(lambda: batcher_run(
+            model, params, prompts, SERVE_NEW, n_slots=SERVE_B,
+            cache_len=SHORT_PROMPT + SERVE_NEW, block_size=16,
+            prefill_chunk=8))
+        eng = ServeEngine(model, params, cache_len=cb.paged.view_len)
+        with engine_logits(model) as calls:
+            toks, engine_ms = timed(lambda: eng.generate(
+                np.stack(prompts), max_new=SERVE_NEW))
+    rows = calls[SHORT_PROMPT - 1:SHORT_PROMPT - 1 + SERVE_NEW]
+    want = {uid: (toks[uid].tolist(), [r[uid] for r in rows])
+            for uid in range(SERVE_B)}
+    cmp = compare_emissions("serving_f32", got, want, SERVE_F32_TOL)
+    line = {"phase": "serving_f32", "arch": model.cfg.name,
+            "requests": SERVE_B, "prompt": SHORT_PROMPT,
+            "new_tokens": SERVE_NEW, "view_len": cb.paged.view_len,
+            "batcher_steps": cb.metrics.counter("sched/steps").value,
+            "batcher_ms": batcher_ms, "engine_ms": engine_ms, **cmp}
+    print(json.dumps(line))
+    return line
+
+
+def phase_small_serving() -> dict:
+    """The reduced llama3.2-1b, deepseek-v2-236b, zamba2-7b and
+    xlstm-125m in f32 from the CPU's draws: the batcher (2 slots, chunked
+    prefill of 4, five requests) on the card against the same run on the
+    CPU and against ``ServeEngine`` on the card request by request; and
+    llama3.2-1b on a pool of 10 blocks of 4 for 3 slots, which must
+    preempt and still emit the engine's tokens; all by
+    ``compare_emissions`` at ``SMALL_SERVE_TOL``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    out = {}
+    with torch.no_grad():
+        for arch in SMALL_SERVE_ARCHS:
+            model = build_model(get_config(arch).reduced())
+            prompts = [np.random.default_rng(1).integers(
+                4, model.cfg.vocab, (n,)).astype(np.int32)
+                for n in (9, 3, 12, 5, 7)]
+            kw = dict(n_slots=2, cache_len=32, prefill_chunk=4)
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                params = host_weights(model, 0, dev)
+                runs[dev] = batcher_run(model, params, prompts, 6, **kw)
+            cb, card = runs["cuda"]
+            cpu = {u: (t, [r.cpu() for r in rows]) for u, (t, rows)
+                   in card.items()}
+            res = {"card_vs_cpu": compare_emissions(
+                f"small_serving {arch} card vs cpu", cpu, runs["cpu"][1],
+                SMALL_SERVE_TOL)}
+            eng = engine_run(model, params, prompts, 6, cb.paged.view_len)
+            res["batcher_vs_engine"] = compare_emissions(
+                f"small_serving {arch} batcher vs engine", card, eng,
+                SMALL_SERVE_TOL)
+            if arch == SERVING_ARCH:
+                tiny = [np.random.default_rng(2).integers(
+                    4, model.cfg.vocab, (8,)).astype(np.int32)
+                    for _ in range(5)]
+                cb, got = batcher_run(model, params, tiny, 8, n_slots=3,
+                                      cache_len=32, block_size=4,
+                                      n_blocks=10, prefill_chunk=4)
+                preempted = cb.metrics.counter("sched/preempted").value
+                if preempted <= 0:
+                    fail("small_serving: the tiny pool did not preempt")
+                res["tiny_pool"] = {"preempted": preempted,
+                                    **compare_emissions(
+                    "small_serving tiny pool", got, engine_run(
+                        model, params, tiny, 8, cb.paged.view_len),
+                    SMALL_SERVE_TOL)}
+            out[arch] = res
+    line = {"phase": "small_serving", **out}
+    print(json.dumps(line))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -4738,10 +5285,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock("xlstm_f32", phase_xlstm_f32)
     xlstm_path = clock("xlstm_path", phase_path, train, D, comm, XLSTM_ARCH,
-                       (("dense_reduce", 3), ("sparse_gather", 1)),
+                       (("dense_reduce", 2), ("sparse_gather", 1)),
                        "xlstm_path", ("--batch-per-worker", "2"), False)
     clock("small_xlstm", phase_small_xlstm, train)
+    torch.cuda.empty_cache()
+    serving = clock("serving", phase_serving, Q, ops)
+    torch.cuda.empty_cache()
+    clock("serving_f32", phase_serving_f32)
+    clock("small_serving", phase_small_serving)
     small_flash = small_mla["flash_launches_by_variant"]
+    swap, fused_swap = serving["swap"], serving["fused_swap"]
+    swap_launches = swap["launches"] + fused_swap["launches"]
     print(json.dumps({"kernels": [{
         "name": "densify", "route": "cuda",
         "source": "src/repro_torch/csrc/densify.cu",
@@ -4785,7 +5339,7 @@ def main() -> int:
                          "repro_int8_decode_sum"],
         "launches": codec["quantize_launches"]
         + overlap["launches"]["quantize"] + backends["launches"]["quantize"]
-        + zero1["launches"]["quantize"],
+        + zero1["launches"]["quantize"] + swap_launches,
         "launches_by_entry": {
             "repro_quantize_int8_ef": codec["quantize_ef_launches"]
             + overlap["launches"]["quantize_ef"]
@@ -4798,7 +5352,7 @@ def main() -> int:
             + backends["launches"]["quantize"]
             - backends["launches"]["quantize_ef"]
             + zero1["launches"]["quantize"]
-            - zero1["launches"]["quantize_ef"],
+            - zero1["launches"]["quantize_ef"] + swap_launches,
             "repro_int8_decode_sum": codec["decode_sum_launches"]
             + overlap["launches"]["decode_sum"]
             + backends["launches"]["decode_sum"]
@@ -4806,7 +5360,18 @@ def main() -> int:
         "launches_by_phase": {"codec": codec["quantize_launches"],
                               "overlap": overlap["launches"]["quantize"],
                               "backends": backends["launches"]["quantize"],
-                              "zero1": zero1["launches"]["quantize"]},
+                              "zero1": zero1["launches"]["quantize"],
+                              "serving": swap_launches},
+        # the int8 hot swap of full-width llama3.2-1b: one stateless
+        # encode a bucket (a bf16 leaf each at the default threshold)
+        "hot_swap": {
+            **{k: swap["encodes"][k] for k in (
+                "elements", "ms", "clock", "plain_ms", "bound_ms",
+                "bound_by", "bound_bytes", "design_bytes",
+                "design_bound_ms", "library_ms")},
+            "launches": swap["launches"],
+            "fused": {k: fused_swap[k] for k in ("fusion_threshold",
+                                                  "buckets", "launches")}},
         "requantize": {
             "per_step_ms": backends["requantize"]["per_step_ms"],
             "per_step_bound_ms": backends["requantize"]["per_step_bound_ms"],

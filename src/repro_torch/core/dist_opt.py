@@ -17,8 +17,9 @@ empty entries for a stateless codec) is threaded through
 ``exchange(grads, state) -> (tree, state)``; ``init_exchange_state``
 builds the first.  ``exchange`` honours ``ExchangeConfig.overlap``;
 ``exchange_scheduled`` and ``exchange_fused`` take one path whatever it
-says.  Under ``ExchangeConfig(zero1=True)`` the exchange and the update
-are one step, ``zero1_step``, over this rank's local ``Zero1State``
+says; ``broadcast`` sends a tree from one worker through the same plan.
+Under ``ExchangeConfig(zero1=True)`` the exchange and the update are one
+step, ``zero1_step``, over this rank's local ``Zero1State``
 (``init_zero1_state``).
 """
 from __future__ import annotations
@@ -88,6 +89,11 @@ class DistributedOptimizer:
         return self.plan(grads).execute_fused(grads, self.group,
                                               average=self.average,
                                               state=state)
+
+    def broadcast(self, tree, root: int = 0):
+        """Broadcast a dense tree from worker ``root`` over ``group``
+        through the plan's buckets and codec: the serving hot swap."""
+        return self.plan(tree).broadcast(tree, self.group, root=root)
 
     # -- ZeRO-1: sharded optimizer state (exchange fused with update) --------
     @property

@@ -987,6 +987,48 @@ class ExchangePlan:
             self.finish_stage(stage, fl, out, inv_scale, p)
         return tree_unflatten(self.treedef, out), ExchangeState(new_states)
 
+    # -- broadcast (the serving hot swap) ------------------------------------
+    def broadcast(self, tree, group: comm.Group, root: int = 0):
+        """Broadcast a tree (refreshed serving weights) from worker
+        ``root`` through the same buckets, codec and backend as the
+        gradient exchange.  ``group=None`` is the local codec round trip.
+        Needs an all-dense plan (compile with ``sparse_as_dense=True``)."""
+        if self.gather_leaf_ids:
+            raise ValueError("broadcast needs an all-dense plan; compile "
+                             "with sparse_as_dense=True")
+        leaves, treedef = tree_flatten(tree)
+        if treedef != self.treedef:
+            raise ValueError(f"tree structure changed: {treedef} "
+                             f"!= planned {self.treedef}")
+        groups = self._check_groups(group)
+        out: List[Any] = list(leaves)
+        for b_id in range(len(self.dense_buckets)):
+            self.broadcast_bucket(b_id, leaves, out, groups, root=root)
+        return tree_unflatten(self.treedef, out)
+
+    def broadcast_bucket(self, b_id: int, leaves: List[Any],
+                         out: List[Any], groups: Tuple,
+                         root: int = 0) -> None:
+        """One bucket of ``broadcast``: pack, encode (a non-linear codec),
+        broadcast over ``groups`` (the checked tuple; ``()`` is local),
+        decode, unpack into ``out``.  ``out``'s entries are replaced, the
+        tensors they held are not written: the streaming unit of the
+        serving hot swap (``serving.engine.HotSwapStream``)."""
+        bucket = self.dense_buckets[b_id]
+        codec = self.config.codec_obj
+        be = self.config.backend_obj
+        buf = self.pack_bucket(bucket, leaves)
+        if codec.linear:
+            if groups:
+                buf = comm.wait(be.broadcast(buf, groups, root=root))
+        else:
+            wire, scale = codec.encode(buf)
+            if groups:
+                wire = comm.wait(be.broadcast(wire, groups, root=root))
+                scale = comm.wait(be.broadcast(scale, groups, root=root))
+            buf = codec.decode(wire, scale, "float32")
+        self.unpack_bucket(bucket, buf, out, None)
+
 
     # -- ZeRO-1 execution (the exchange fused with the update) ---------------
     def _check_not_zero1(self) -> None:

@@ -22,7 +22,8 @@
 
 Training runs ``loss``/``forward``; the prefill step runs ``forward``
 and ``head`` on the last position; serving runs ``init_cache``,
-``prefill`` and ``decode_step`` (``repro.models.model``'s serving API).
+``prefill``, ``decode_step`` and ``reset_slots`` (``repro.models.model``'s
+serving API).
 
 Parameters are one nested dict whose per-layer leaves are stacked on a
 leading ``n_layers`` axis, the reference's layout (``repro.models.model``),
@@ -392,6 +393,30 @@ class Model:
                 params, cache, tokens[:, i:i + 1], enc=enc, window=window,
                 attn_impl=attn_impl, ring=ring)
         return logits, cache
+
+    def reset_slots(self, cache: Dict, mask) -> Dict:
+        """Continuous batching: a cache whose slots where ``mask`` (B,)
+        is True hold a fresh request's state.  The per-slot ``length`` is
+        zeroed (the mask hides stale attention rows) and every (L, B, ...)
+        or (B, ...) leaf is re-initialised on those slots, as the
+        reference's ``where`` does: the result is a new tree, and no
+        tensor of ``cache`` is written."""
+        length = cache["length"]
+        b = length.shape[0]
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=length.device)
+        fresh = self.init_cache(b, _cache_len(cache), device=length.device)
+        leaves, treedef = tree_flatten(cache)
+        new = []
+        for old, init in zip(leaves, tree_flatten(fresh)[0]):
+            if old.dim() >= 2 and old.shape[1] == b:
+                m = mask.reshape((1, b) + (1,) * (old.dim() - 2))
+            elif old.dim() >= 1 and old.shape[0] == b:
+                m = mask.reshape((b,) + (1,) * (old.dim() - 1))
+            else:
+                new.append(old)
+                continue
+            new.append(torch.where(m, init, old))
+        return tree_unflatten(treedef, new)
 
     def decode_step(self, params: Params, cache: Dict,
                     tokens: Optional[torch.Tensor],

@@ -3,7 +3,9 @@
 Parameters, gradients and optimizer state are nested dicts of tensors.
 ``tree_flatten`` orders leaves with dict keys sorted, as ``jax.tree_util``
 does, so a tree flattens to the same leaf order in both packages and the
-exchange plan buckets the same leaves the same way.  Only dicts are tree
+exchange plan buckets the same leaves the same way.  ``tree_leaves_with_path``
+names each leaf by the string ``jax.tree_util.keystr`` gives its path
+(``"['attn']['k']"``), so the serving cache sorts leaves by the same keys.  Only dicts are tree
 nodes; everything else (a tensor, an ``IndexedSlices``, a contribution
 list) is a leaf.
 """
@@ -47,6 +49,22 @@ def _unflatten(d, it):
     return {k: _unflatten(c, it) for k, c in zip(keys, children)}
 
 
+def tree_leaves_with_path(tree) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in ``tree_flatten``'s order; the path is
+    each key's ``repr`` in brackets, outermost first."""
+    out: List[Tuple[str, Any]] = []
+    _with_path(tree, "", out)
+    return out
+
+
+def _with_path(node, prefix: str, out: List[Tuple[str, Any]]) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _with_path(node[k], f"{prefix}[{k!r}]", out)
+    else:
+        out.append((prefix, node))
+
+
 def tree_map(fn: Callable, tree, *rest) -> Any:
     leaves, treedef = tree_flatten(tree)
     others = [tree_flatten(r) for r in rest]
@@ -56,3 +74,9 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(
         leaves, *(o[0] for o in others))])
 
+
+def tree_map_with_path(fn: Callable, tree, *rest) -> Any:
+    """``tree_map`` whose ``fn`` takes each leaf's path (as
+    ``tree_leaves_with_path`` names it) first."""
+    paths = iter([p for p, _ in tree_leaves_with_path(tree)])
+    return tree_map(lambda *xs: fn(next(paths), *xs), tree, *rest)

@@ -2,8 +2,9 @@
 
 Imported by the spawned processes of tests/test_torch_exchange.py
 (``run``), tests/test_torch_overlap.py (``run_overlap``),
-tests/test_torch_backend_world.py (``run_backends``) and
-tests/test_torch_zero1_world.py (``run_zero1``); it imports torch and
+tests/test_torch_backend_world.py (``run_backends``),
+tests/test_torch_zero1_world.py (``run_zero1``) and
+tests/test_torch_hot_swap.py (``run_broadcast``); it imports torch and
 the port only.
 """
 import numpy as np
@@ -427,3 +428,40 @@ def run_zero1(rank: int, world: int, port: int, out_dir: str) -> None:
         torch.save(results, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+#: the wires of the world-of-2 broadcast
+BROADCAST_CODECS = ("identity", "int8")
+
+
+def run_broadcast(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Every rank draws its own reduced llama3.2-1b weights (seed =
+    rank) and receives rank 0's through the broadcast plan, a
+    ``HotSwapStream`` and ``DistributedOptimizer.broadcast``."""
+    from repro_torch.serving import HotSwapStream, broadcast_plan
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        model = build_model(get_config("llama3.2-1b").reduced())
+        params = model.init(seed=rank, device="cpu")
+        group = dist.group.WORLD
+        results = {}
+        for codec in BROADCAST_CODECS:
+            plan = broadcast_plan(params, codec=codec)
+            results[f"{codec}/plan"] = tree_flatten(
+                plan.broadcast(params, group, root=0))[0]
+            stream = HotSwapStream(plan, params, params, version=1,
+                                   group=group, root=0)
+            while not stream.step():
+                pass
+            results[f"{codec}/stream"] = tree_flatten(stream.result())[0]
+            opt = DistributedOptimizer(adamw(1e-3), exchange=ExchangeConfig(
+                sparse_as_dense=True, codec=codec, use_kernel=True),
+                group=group)
+            results[f"{codec}/optimizer"] = tree_flatten(
+                opt.broadcast(params, root=0))[0]
+        torch.save(results, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
