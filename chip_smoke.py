@@ -311,6 +311,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
                llama3.2-1b, deepseek-v2-236b, zamba2-7b and xlstm-125m
                batchers on the card against the CPU and against
                ``ServeEngine``, and a tiny pool that preempts.
+ 14. telemetry — the launcher on full-width transformer-big with
+               ``--codec int8 --error-feedback --metrics-jsonl
+               --trace-dir`` (3 steps, a world of 1 over NCCL, files under
+               ``build/telemetry``): 3 ``step`` rows, the ``history``
+               rows and a trailing ``summary`` in the JSONL; the trace's
+               stages equal ``plan.stage_names()``, each with the four
+               phase slices (``dur >= 0``), and ``wire_exact`` (0 bytes at
+               a world of 1); densify, quantize and the collectives
+               counted over the 3 steps and the capture's 3 (the
+               ``measure_wire`` run, the warm-up and the timed step).
+               Then, from one copied state, one untraced step and one
+               ``StepTracer.capture`` step (no warm-up): parameters, Adam
+               state and residuals bitwise equal, the same kernels name by
+               name and count by count under ``torch.profiler`` (the
+               stage names' ``record_function`` ranges set aside), densify
+               1 and quantize 16 + 16 launches each; each stage's phase
+               us, the trace's step us beside the untraced step's wall ms
+               and device busy ms, and the traced minus untraced wall
+               (medians of 5 steps each, in turns).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -322,6 +341,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5158,6 +5178,172 @@ def phase_small_serving() -> dict:
     return line
 
 
+TELEMETRY_ARGV = FULL_WIDTH + ["--grad-accum", "dense_reduce", "--codec",
+                               "int8", "--error-feedback", "--steps", "3"]
+#: untraced and traced steps timed in turns: the host's jitter on one step
+#: (96.8 to 141.1 ms untraced on an H100 80GB HBM3 host) is larger than
+#: the taps' cost
+TELEMETRY_PAIRS = 5
+
+
+def kernel_counts(prof, skip) -> dict:
+    """Device events of a ``torch.profiler`` run by name, with their
+    counts, leaving out the names in ``skip`` (the traced step's
+    ``record_function`` ranges, which the profiler lists on the device
+    timeline beside the kernels)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_time_total > 0 and e.key not in skip}
+
+
+def phase_telemetry(train, D, Q, comm) -> dict:
+    """The telemetry path on full-width transformer-big, int8+ef: the
+    launcher's JSONL and trace, then a traced step against an untraced
+    one from the same state.  Returns the kernels' launches in the
+    launcher's run."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import build_model
+    from repro_torch.telemetry import hooks, report
+    from repro_torch.telemetry import trace as trace_lib
+    from repro_torch.training import make_train_step
+    out_dir = os.path.join(ROOT, "build", "telemetry")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    jsonl = os.path.join(out_dir, "metrics.jsonl")
+    tdir = os.path.join(out_dir, "trace")
+    argv = TELEMETRY_ARGV + ["--metrics-jsonl", jsonl, "--trace-dir", tdir]
+    plan = exchange_plan(train, argv)
+    names = list(plan.stage_names())
+    steps = 3
+    reset_counts(D, Q, comm)
+    result = train.run(argv, log=lambda s: None)
+    got = read_counts(D, Q, comm)
+    # the capture runs the step 3 more times: measure_wire, the warm-up
+    # and the timed step
+    check_counts("telemetry launcher", got, plan, steps + 3)
+
+    lines = [json.loads(x) for x in open(jsonl).read().splitlines() if x]
+    kinds = [r["kind"] for r in lines]
+    if kinds != ["step"] * steps + ["history"] * steps + ["summary"]:
+        fail(f"telemetry: JSONL record kinds {kinds}")
+    rows_ok = all(math.isfinite(r["loss"]) and r["step_ms"] > 0
+                  and r["data_ms"] >= 0 and r["compute_ms"] > 0
+                  for r in lines if r["kind"] == "step")
+    if not rows_ok:
+        fail(f"telemetry: step rows {lines[:steps]}")
+    t = report.load_trace(os.path.join(tdir, "trace.json"))
+    slices = [e for e in t["traceEvents"] if e.get("cat") == "exchange"]
+    if t["otherData"]["stage_names"] != names or \
+            {e["args"]["stage"] for e in slices} != set(names):
+        fail("telemetry: the trace's stages differ from plan.stage_names()")
+    for n in names:
+        mine = sorted(e["name"] for e in slices if e["args"]["stage"] == n)
+        if mine != sorted(trace_lib.PHASES) or any(
+                e["dur"] < 0 for e in slices if e["args"]["stage"] == n):
+            fail(f"telemetry: stage {n} has slices {mine}")
+    rows = report.predicted_vs_measured(t)
+    if not report.wire_exact(rows) or any(
+            r["planned_wire_bytes"] != 0 or r["measured_wire_bytes"] != 0
+            for r in rows):
+        fail(f"telemetry: wire not exact at a world of 1: {rows[:2]}")
+    summary = report.summarize_trace(t)
+
+    created = _world_of_one(train)
+    try:
+        args, cfg, batch_at = zero1_setup(train, TELEMETRY_ARGV)
+        opt = train.build_optimizer(args, cfg, dist.group.WORLD)
+        step = make_train_step(build_model(cfg), opt, sparse_embedding=True)
+        state = (result["params"], result["opt_state"],
+                 result["exchange_state"], batch_at(steps))
+        del result
+        # a first step of this step function, unprofiled: it pays the
+        # one-time host-to-device copies and memsets the two profiled
+        # steps must not differ by
+        step(*trace_lib.copy_tensors(state))
+        tracer = trace_lib.StepTracer()
+        runs = {}
+        for tag, fn in (("untraced", lambda: step(*trace_lib.copy_tensors(
+                            state))),
+                        ("traced", lambda: tracer.capture(step, *state,
+                                                          warmup=False))):
+            torch.cuda.synchronize()
+            reset_counts(D, Q, comm)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+            counts = read_counts(D, Q, comm)
+            check_counts(f"telemetry {tag} step", counts, plan, 1)
+            kernels = kernel_counts(prof, set(names))
+            runs[tag] = {"state": train_state(*out[:3]), "counts": counts,
+                         "kernels": kernels,
+                         "busy_ms": sum(e.device_time_total for e in
+                                        prof.key_averages() if e.key in
+                                        kernels) / 1e3}
+            del out
+        if hooks.tracer() is not None or hooks.wire_recorder() is not None:
+            fail("telemetry: a hook was left installed")
+        bad = differing(runs["traced"]["state"], runs["untraced"]["state"])
+        if bad:
+            fail(f"telemetry: the traced step differs bitwise in tensors "
+                 f"{bad[:10]}")
+        ku, kt = runs["untraced"]["kernels"], runs["traced"]["kernels"]
+        if ku != kt:
+            diff = {k: (ku.get(k), kt.get(k)) for k in set(ku) | set(kt)
+                    if ku.get(k) != kt.get(k)}
+            fail(f"telemetry: the traced step launches other kernels: "
+                 f"{diff}")
+        traced_step_us = (tracer.step_marks[-1]["t_end"]
+                          - tracer.step_marks[-1]["t_start"]) * 1e6
+
+        # wall ms of each kind of step from a fresh copy (the copies made
+        # before the clock starts), TELEMETRY_PAIRS each, interleaved
+        walls = {"untraced": [], "traced": []}
+        for _ in range(TELEMETRY_PAIRS):
+            for tag in walls:
+                args_ = trace_lib.copy_tensors(state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if tag == "traced":
+                    trace_lib.StepTracer().run(step, *args_)
+                else:
+                    step(*args_)
+                torch.cuda.synchronize()
+                walls[tag].append((time.perf_counter() - t0) * 1e3)
+                del args_
+        del state
+    finally:
+        if created:
+            dist.destroy_process_group()
+    stage_us = {n: summary["stages"][n]["phase_us"] for n in names}
+    wall_u = statistics.median(walls["untraced"])
+    wall_t = statistics.median(walls["traced"])
+    line = {"phase": "telemetry", "stages": len(names),
+            "launcher_launches": got,
+            "jsonl_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "jsonl_step_ms": [r["step_ms"] for r in lines[:steps]],
+            "jsonl_data_ms": [r["data_ms"] for r in lines[:steps]],
+            "jsonl_compute_ms": [r["compute_ms"] for r in lines[:steps]],
+            "trace_step_us": summary["step_us"],
+            "wire_exact": True, "bitwise_traced_vs_untraced": True,
+            "same_kernels": True, "kernel_names": len(ku),
+            "kernel_launches": sum(ku.values()),
+            "step_counts": runs["traced"]["counts"],
+            "capture_step_us": traced_step_us,
+            "untraced_wall_ms": walls["untraced"],
+            "traced_wall_ms": walls["traced"],
+            "traced_minus_untraced_wall_ms_median": wall_t - wall_u,
+            "untraced_device_busy_ms": runs["untraced"]["busy_ms"],
+            "traced_device_busy_ms": runs["traced"]["busy_ms"]}
+    print(json.dumps(line))
+    for n in names:
+        print(json.dumps({"phase": "telemetry_stage", "stage": n,
+                          "phase_us": stage_us[n],
+                          "predicted_us_ethernet":
+                              t["otherData"]["predicted_us"][n]}))
+    # the main path's run: the launcher (its 3 steps and the capture's 3)
+    return {k: got[k] for k in ("densify", "quantize", "quantize_ef",
+                                "decode_sum")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -5293,6 +5479,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock("serving_f32", phase_serving_f32)
     clock("small_serving", phase_small_serving)
+    torch.cuda.empty_cache()
+    tele = clock("telemetry", phase_telemetry, train, D, Q, comm)
     small_flash = small_mla["flash_launches_by_variant"]
     swap, fused_swap = serving["swap"], serving["fused_swap"]
     swap_launches = swap["launches"] + fused_swap["launches"]
@@ -5304,7 +5492,8 @@ def main() -> int:
         + overlap["launches"]["densify"] + backends["launches"]["densify"]
         + zero1["launches"]["densify"] + dense_path["densify_launches"]
         + seamless_path["densify_launches"] + moe_path["densify_launches"]
-        + mla_path["densify_launches"] + xlstm_path["densify_launches"],
+        + mla_path["densify_launches"] + xlstm_path["densify_launches"]
+        + tele["densify"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
@@ -5315,7 +5504,8 @@ def main() -> int:
                                   seamless_path["densify_launches"],
                               "moe_path": moe_path["densify_launches"],
                               "mla_path": mla_path["densify_launches"],
-                              "xlstm_path": xlstm_path["densify_launches"]},
+                              "xlstm_path": xlstm_path["densify_launches"],
+                              "telemetry": tele["densify"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -5339,12 +5529,13 @@ def main() -> int:
                          "repro_int8_decode_sum"],
         "launches": codec["quantize_launches"]
         + overlap["launches"]["quantize"] + backends["launches"]["quantize"]
-        + zero1["launches"]["quantize"] + swap_launches,
+        + zero1["launches"]["quantize"] + swap_launches
+        + tele["quantize"],
         "launches_by_entry": {
             "repro_quantize_int8_ef": codec["quantize_ef_launches"]
             + overlap["launches"]["quantize_ef"]
             + backends["launches"]["quantize_ef"]
-            + zero1["launches"]["quantize_ef"],
+            + zero1["launches"]["quantize_ef"] + tele["quantize_ef"],
             "repro_quantize_int8": codec["quantize_launches"]
             - codec["quantize_ef_launches"]
             + overlap["launches"]["quantize"]
@@ -5352,16 +5543,18 @@ def main() -> int:
             + backends["launches"]["quantize"]
             - backends["launches"]["quantize_ef"]
             + zero1["launches"]["quantize"]
-            - zero1["launches"]["quantize_ef"] + swap_launches,
+            - zero1["launches"]["quantize_ef"] + swap_launches
+            + tele["quantize"] - tele["quantize_ef"],
             "repro_int8_decode_sum": codec["decode_sum_launches"]
             + overlap["launches"]["decode_sum"]
             + backends["launches"]["decode_sum"]
-            + zero1["launches"]["decode_sum"]},
+            + zero1["launches"]["decode_sum"] + tele["decode_sum"]},
         "launches_by_phase": {"codec": codec["quantize_launches"],
                               "overlap": overlap["launches"]["quantize"],
                               "backends": backends["launches"]["quantize"],
                               "zero1": zero1["launches"]["quantize"],
-                              "serving": swap_launches},
+                              "serving": swap_launches,
+                              "telemetry": tele["quantize"]},
         # the int8 hot swap of full-width llama3.2-1b: one stateless
         # encode a bucket (a bf16 leaf each at the default threshold)
         "hot_swap": {
@@ -5389,7 +5582,8 @@ def main() -> int:
         "decode_sum": {"launches": codec["decode_sum_launches"]
                        + overlap["launches"]["decode_sum"]
                        + backends["launches"]["decode_sum"]
-                       + zero1["launches"]["decode_sum"],
+                       + zero1["launches"]["decode_sum"]
+                       + tele["decode_sum"],
                        **wire["decode_sum"][1]},
         "f32_leaf": {
             "per_step_ms": wire["per_step"]["encode_f32_ms"],

@@ -20,4 +20,4 @@ from repro_torch.core.codecs import (ExchangeState, WireCodec,
 from repro_torch.core.exchange import (BucketSchedule, BucketStage,
                                        ExchangeConfig, ExchangePlan,
                                        compile_plan)
-from repro_torch.core.dist_opt import DistributedOptimizer
+from repro_torch.core.dist_opt import DistributedOptimizer, ExchangeStats

@@ -27,6 +27,11 @@ Shipped backends:
                         order, so every worker sums in the reference's
                         order.
 
+Wire billing for telemetry sits in the comm functions every backend
+collective reaches (``comm.reduce_scatter_dense`` for the flat
+reduce-scatter, ``comm.ring_*`` for the ring, the allreduce for the
+mask-and-sum broadcast), with the reference's formulas and kinds.
+
 The ``hlo_ops_*`` counts keep the reference's names, where they count
 the collective ops of the lowered HLO.  Here they count the collective
 calls the comm layer issues (``comm.calls()``: allreduces, allgathers,

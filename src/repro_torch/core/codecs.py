@@ -123,6 +123,12 @@ class WireCodec:
     scale_bytes: int = 0
     #: True when the codec carries per-bucket memory across steps
     stateful: bool = False
+    #: cost metadata for the cost model (``repro_torch.tuning.cost``):
+    #: full-precision memory passes over the bucket per encode + decode
+    #: round (0 = free pass-through, 1 = one narrowing cast, 2 = scale
+    #: + quantise and decode + sum), billed against the profile's
+    #: ``hbm_bw`` once per requantize round
+    cost_passes: float = 0.0
 
     def wire_dtype(self, native_dtype: str) -> str:
         """Dtype of the encoded values buffer."""
@@ -226,6 +232,7 @@ class CastCodec(WireCodec):
     (``comm.fp8_encode``)."""
 
     linear = True
+    cost_passes = 1.0        # one narrowing cast + one widening cast
 
     def __init__(self, target_dtype, name: Optional[str] = None):
         self.target = canonical_dtype(target_dtype)
@@ -257,6 +264,7 @@ class Int8Codec(WireCodec):
     name = "int8"
     linear = False
     scale_bytes = 4          # one f32 scale per bucket
+    cost_passes = 2.0        # absmax + quantise, then decode + sum
     QMAX = 127.0
 
     def wire_dtype(self, native_dtype: str) -> str:
@@ -305,6 +313,8 @@ class ErrorFeedbackCodec(WireCodec):
         self.name = inner.name + EF_SUFFIX
         self.linear = inner.linear
         self.scale_bytes = inner.scale_bytes
+        # residual add + round-trip error bank, on top of the inner wire
+        self.cost_passes = inner.cost_passes + 2.0
 
     def wire_dtype(self, native_dtype: str) -> str:
         return self.inner.wire_dtype(native_dtype)

@@ -38,7 +38,12 @@ round back with its overflow rule, ``fp8_encode``); they count as one
 call of the collective they stand for.
 
 ``*_bytes`` helpers give the exact wire size of each collective (static
-functions of shapes), shared with the reference's accounting.
+functions of shapes), shared with the reference's accounting.  While a
+``telemetry.hooks.WireRecorder`` is installed, every collective here
+bills its per-worker wire bytes to the enclosing stage with the
+reference's per-hop formula and kind (``all-reduce``, ``reduce-scatter``,
+``all-gather``, and ``collective-permute`` for the ring); with none
+installed the gate is one global read.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.telemetry import hooks as _telemetry
 
 Group = Union[None, dist.ProcessGroup, Tuple[dist.ProcessGroup, ...]]
 
@@ -213,6 +219,9 @@ def all_reduce_dense(x: torch.Tensor, group: Group, average: bool = True):
     g = _one(group, "all_reduce_dense")
     all_reduce_dense.calls += 1
     p = axis_size(g)
+    if _telemetry.wire_recorder() is not None:
+        _telemetry.record_collective("all-reduce", allreduce_wire_bytes(
+            x.shape, x.dtype, p))
     if is_fp8(x.dtype):
         if average:
             raise ValueError("all_reduce_dense: a float8 sum is averaged "
@@ -239,6 +248,10 @@ def reduce_scatter_dense(x: torch.Tensor, group: Group,
         raise ValueError(f"reduce_scatter_dense: {x.shape[0]} rows do not "
                          f"split into {p} chunks (pad to a multiple)")
     reduce_scatter_dense.calls += 1
+    if _telemetry.wire_recorder() is not None:
+        _telemetry.record_collective(
+            "reduce-scatter", reduce_scatter_wire_bytes(
+                math.prod(x.shape), x.dtype, p))
     if is_fp8(x.dtype):
         if average:
             raise ValueError("reduce_scatter_dense: a float8 sum is "
@@ -268,6 +281,11 @@ def all_gather_dense(x: torch.Tensor, group: Group):
     x = _bits(x.contiguous())
     for k, g in enumerate(reversed(gs)):
         parts = [torch.empty_like(x) for _ in range(axis_size(g))]
+        if _telemetry.wire_recorder() is not None:
+            # per-level billing telescopes to (P-1) * the original bytes
+            _telemetry.record_collective(
+                "all-gather", (len(parts) - 1) * x.numel()
+                * x.element_size())
         work = dist.all_gather(parts, x, group=g, async_op=True)
         all_gather_dense.calls += 1
         pending = Pending(work, (x, parts),
@@ -283,7 +301,8 @@ def two_level_all_reduce(x: torch.Tensor, group: Group,
     innermost first (within-pod, then cross-pod, for ``(cross_pod,
     within_pod)``), each level but the last waited for before the next
     is issued (on NCCL the wait orders the stream, the host goes on).
-    Returned as a ``Pending``."""
+    Returned as a ``Pending``.  Each level's ``all_reduce_dense`` bills
+    its own hop, as the reference bills one psum per axis."""
     gs = groups(group)
     if not gs:
         return x
@@ -383,15 +402,26 @@ def ring_all_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
     ring simulation orders them, so every rank sums in its order.  No
     hop at P = 1.  Returns the sum (float8 added as the reference adds
     it)."""
-    return _ring_all_reduce(x, _one(group, "ring_all_reduce"), ring_shift)
+    g = _one(group, "ring_all_reduce")
+    p = dist.get_world_size(g)
+    if p > 1 and _telemetry.wire_recorder() is not None:
+        _telemetry.record_collective(
+            "collective-permute",
+            2 * (p - 1) * -(-x.shape[0] // p) * x.element_size())
+    return _ring_all_reduce(x, g, ring_shift)
 
 
 def ring_reduce_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
     """The ring's P-1 reduce-scatter hops: rank r returns the sum of
     chunk r of ``x`` (whose length the caller pads to a multiple of
     P)."""
-    return _ring_reduce_scatter(x, _one(group, "ring_reduce_scatter"),
-                                ring_shift)
+    g = _one(group, "ring_reduce_scatter")
+    p = dist.get_world_size(g)
+    if p > 1 and _telemetry.wire_recorder() is not None:
+        _telemetry.record_collective(
+            "collective-permute",
+            (p - 1) * -(-x.shape[0] // p) * x.element_size())
+    return _ring_reduce_scatter(x, g, ring_shift)
 
 
 def ring_all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
@@ -401,6 +431,9 @@ def ring_all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
     p, r = dist.get_world_size(g), dist.get_rank(g)
     if p == 1:
         return x
+    if _telemetry.wire_recorder() is not None:
+        _telemetry.record_collective(
+            "collective-permute", (p - 1) * x.numel() * x.element_size())
     bits = _bits(x)
     parts = bits.new_empty((p,) + tuple(x.shape))
     parts[r] = bits

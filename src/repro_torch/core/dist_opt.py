@@ -20,16 +20,81 @@ builds the first.  ``exchange`` honours ``ExchangeConfig.overlap``;
 says; ``broadcast`` sends a tree from one worker through the same plan.
 Under ``ExchangeConfig(zero1=True)`` the exchange and the update are one
 step, ``zero1_step``, over this rank's local ``Zero1State``
-(``init_zero1_state``).
+(``init_zero1_state``).  ``exchange_stats`` gives the static per-step
+accounting (``ExchangeStats``) with the cost model's prediction.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 from repro_torch.core import comm, exchange
 from repro_torch.core.codecs import ExchangeState
 from repro_torch.core.exchange import ExchangeConfig
 from repro_torch.optim.base import Optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeStats:
+    """Static per-step accounting (``repro.core.dist_opt.ExchangeStats``).
+
+    Derived entirely from the ExchangePlan: the same numbers the runtime
+    collectives move.  ``strategy`` names the accumulation rule and the
+    active codec/backend; the schedule fields mirror the plan's
+    ``BucketSchedule``, so the launcher's printout says what will run per
+    stage.
+    """
+    accumulated_bytes: int       # size of accumulated representation
+    wire_bytes: int              # bytes moved by the collective (per worker)
+    n_collectives: int
+    strategy: str
+    n_stages: int = 1            # BucketSchedule stages (1 bucket each)
+    overlap: Union[bool, str] = False    # False | "staged" | "backward"
+    schedule_table: str = ""     # plan.describe_schedule(n_workers)
+    state_bytes: int = 0         # per-worker codec-state memory (residuals)
+    state_bytes_per_bucket: tuple = ()   # same, stage by stage
+    hop_wire_bytes: tuple = ()   # per-mesh-level wire (hierarchical runs)
+    predicted_comm_us: float = 0.0   # cost-model estimate (tuning.cost)
+    cost_profile: str = ""       # BandwidthProfile the estimate used
+    param_bytes: int = 0         # per-worker model params (replicated)
+    grad_bytes: int = 0          # per-worker gradient tree
+    opt_state_bytes: int = 0     # per-worker optimizer state (EMA + step;
+    #                              1/P flat shards + f32 master under zero1)
+    zero1: bool = False          # optimizer state sharded over the mesh?
+
+    def describe(self) -> str:
+        """One-look summary of what the exchange will actually run:
+        strategy, totals, codec-state memory, and the per-stage
+        BucketSchedule (with per-hop wire on hierarchical runs)."""
+        ov = self.overlap
+        mode = ("off" if not ov
+                else "on" if ov in (True, "staged") else str(ov))
+        head = (f"exchange: strategy={self.strategy} "
+                f"collectives={self.n_collectives} "
+                f"wire_bytes/worker={self.wire_bytes} "
+                f"accumulated_bytes={self.accumulated_bytes} "
+                f"stages={self.n_stages} "
+                f"overlap={mode}")
+        if self.cost_profile:
+            head += (f" predicted_comm_us={self.predicted_comm_us:.1f} "
+                     f"(profile={self.cost_profile})")
+        if self.param_bytes or self.opt_state_bytes:
+            opt_tag = "zero1-sharded" if self.zero1 else "replicated"
+            head += (f"\nmemory/worker: params={self.param_bytes} B "
+                     f"grads={self.grad_bytes} B "
+                     f"opt_state={self.opt_state_bytes} B ({opt_tag}) "
+                     f"codec_state={self.state_bytes} B")
+        if self.state_bytes:
+            per = ",".join(str(b) for b in self.state_bytes_per_bucket)
+            head += (f"\ncodec state: {self.state_bytes} B/worker "
+                     f"residual memory (per bucket: [{per}])")
+        if len(self.hop_wire_bytes) > 1:
+            hops = ", ".join(f"L{k}={b}"
+                             for k, b in enumerate(self.hop_wire_bytes))
+            head += f"\nper-hop wire B/worker (outermost first): {hops}"
+        if self.schedule_table:
+            return head + "\n" + self.schedule_table
+        return head
 
 
 class DistributedOptimizer:
@@ -129,3 +194,60 @@ class DistributedOptimizer:
                                     params, z_state, self.group,
                                     average=self.average,
                                     ex_state=exchange_state)
+
+    # -- static accounting (no devices needed) -------------------------------
+    def exchange_stats(self, grads, n_workers: Union[int, tuple],
+                       profile: Optional[str] = "ib") -> ExchangeStats:
+        """Static per-step accounting plus the cost model's
+        ``predicted_comm_us`` under ``profile`` (a BandwidthProfile preset
+        name, JSON path, or instance; ``None`` skips the prediction).
+        ``grads`` may hold ``meta`` tensors.  The strategy names a backend
+        other than the default ``flat`` (the reference's ``jax``), so the
+        two packages' strings are equal for every config."""
+        plan = self.plan(grads)
+        predicted_us, profile_name = 0.0, ""
+        if profile is not None:
+            # lazy import: tuning consumes core, not the other way round
+            from repro_torch.tuning import cost as tuning_cost
+            from repro_torch.tuning.profile import get_profile
+            prof = get_profile(profile)
+            predicted_us = tuning_cost.predict_comm_us(plan, n_workers,
+                                                       prof)
+            profile_name = prof.name
+        cfg = plan.config
+        strategy = ("dense_reduce" if cfg.sparse_as_dense
+                    else f"{cfg.algorithm}")
+        if cfg.reduce_scatter:
+            strategy += "+reduce_scatter"
+        if cfg.zero1:
+            strategy += "+zero1"
+            if cfg.param_codec != "identity":
+                strategy += f"+param_codec:{cfg.param_codec}"
+        if cfg.codec != "identity":
+            strategy += f"+codec:{cfg.codec}"
+        if cfg.backend != "flat":
+            strategy += f"+backend:{cfg.backend}"
+        if cfg.overlap:
+            strategy += ("+overlap" if cfg.overlap == "staged"
+                         else f"+overlap:{cfg.overlap}")
+        from repro_torch.optim import zero1 as zero1_lib   # lazy (see above)
+        opt_state_bytes = zero1_lib.optimizer_state_bytes(
+            plan, n_workers,
+            state_dtype=getattr(self.base, "state_dtype", "float32"))
+        return ExchangeStats(
+            accumulated_bytes=plan.buffer_bytes(n_workers),
+            wire_bytes=plan.wire_bytes(n_workers),
+            n_collectives=plan.n_collectives,
+            strategy=strategy,
+            n_stages=plan.schedule.n_stages,
+            overlap=cfg.overlap,
+            schedule_table=plan.describe_schedule(n_workers),
+            state_bytes=plan.state_bytes(),
+            state_bytes_per_bucket=plan.state_bytes_per_stage(),
+            hop_wire_bytes=plan.hop_wire_bytes(n_workers),
+            predicted_comm_us=predicted_us,
+            cost_profile=profile_name,
+            param_bytes=plan.param_bytes(),
+            grad_bytes=plan.param_bytes(),
+            opt_state_bytes=opt_state_bytes,
+            zero1=cfg.zero1)

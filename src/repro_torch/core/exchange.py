@@ -51,10 +51,19 @@ The plan is the single source of the byte and launch accounting
 ``n_collectives`` / ``hlo_collectives`` / ``state_bytes``), which equals
 the reference plan's for the same tree exactly; each stage delegates to
 the backend.
+Every stage has a name (``stage_name``, the reference's strings, e.g.
+``exchange/s03/allreduce/bucket=dense2/trigger=block5``), and each stage's
+accumulate, launch and finish run inside ``telemetry.hooks.stage_scope``
+of it, so the wire recorder bills each collective to its stage; the
+phase taps (``accumulate``, ``pack``, ``collective`` once the stage's
+collectives have been waited for, ``unpack``) return their argument
+untouched unless a tracer is installed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -66,9 +75,34 @@ from repro_torch.core import accumulation, backend as backend_lib, codecs, \
 from repro_torch.core.backend import ALLGATHER, ALLREDUCE, REDUCE_SCATTER
 from repro_torch.core.codecs import ExchangeState
 from repro_torch.core.indexed_slices import IndexedSlices, concat_slices
+from repro_torch.telemetry import hooks as _telemetry
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Levels = Union[int, Sequence[int]]
+
+
+def _stage_scope(name: str):
+    """``telemetry.hooks.stage_scope(name)`` and, only while a tracer is
+    installed, a ``torch.profiler.record_function`` range of the same name
+    (the reference's ``jax.named_scope``): the untraced step gains no
+    dispatcher call."""
+    if _telemetry.tracer() is None:
+        return _telemetry.stage_scope(name)
+    return _traced_scope(name)
+
+
+@contextlib.contextmanager
+def _traced_scope(name: str):
+    with _telemetry.stage_scope(name), torch.profiler.record_function(name):
+        yield
+
+
+def _tap_first(phase: str, stage: "BucketStage", leaves: List[Any]) -> None:
+    """Tap ``phase`` once for ``stage`` on the first of its leaves (a
+    traced step only)."""
+    if _telemetry.tracer() is not None:
+        i0 = min(stage.leaf_ids)
+        leaves[i0] = _telemetry.tap(phase, leaves[i0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -616,6 +650,103 @@ class ExchangePlan:
                                            self.leaf_specs[i].dtype)
                    for i in self.dense_leaf_ids)
 
+    def param_bytes(self) -> int:
+        """Per-worker parameter memory (params are replicated under every
+        strategy, zero1 included: only the master copy shards): every
+        leaf's dense shape at its native dtype.  Sparse grad leaves still
+        correspond to dense param tensors."""
+        total = 0
+        for s in self.leaf_specs:
+            shape = s.shape if isinstance(s, DenseSpec) else s.dense_shape
+            total += math.prod(shape) * comm.dtype_bytes(s.dtype)
+        return total
+
+    def describe(self) -> str:
+        """Human-readable bucket/collective table naming the active codec
+        and backend per bucket (the reference's, with the port's backend
+        names: ``flat`` for its ``jax``)."""
+        codec, be = self.config.codec, self.config.backend
+        lines = ["| bucket | kind | collective | codec | backend | elems "
+                 "| wire dtype |",
+                 "|---|---|---|---|---|---|---|"]
+        for k, b in enumerate(self.dense_buckets):
+            lines.append(f"| {k} | dense x{len(b.slots)} | {b.collective} "
+                         f"| {codec} | {be} | {b.n_elems} "
+                         f"| {b.wire_dtype} |")
+        for k, i in enumerate(self.gather_leaf_ids):
+            s = self.leaf_specs[i]
+            lines.append(f"| g{k} | sparse rows={s.rows} | allgather "
+                         f"| {codec} | {be} | {s.rows * s.row_elems} "
+                         f"| {self.config.codec_obj.wire_dtype(s.dtype)} |")
+        return "\n".join(lines)
+
+    def describe_schedule(self, n_workers: Union[Levels, None] = None
+                          ) -> str:
+        """Human-readable BucketSchedule: stage launch order, readiness
+        keys, per-stage collectives (and wire bytes when ``n_workers`` is
+        given): what a step will actually run."""
+        sch = self.schedule
+        ov = self.config.overlap
+        mode = ("wait-free backward" if ov == "backward"
+                else "overlap" if ov else "fused")
+        launch = ("each stage launches from inside the backward pass, "
+                  "the moment its trigger block's cotangents are emitted"
+                  if ov == "backward"
+                  else "launch order reverse-layer (descending readiness "
+                  "key)")
+        lines = [f"schedule: {sch.n_stages} stages ({mode}), {launch}"]
+        state_per_stage = self.state_bytes_per_stage()
+        for k, st in enumerate(sch.stages):
+            wire = ""
+            if n_workers is not None:
+                wire = f", {self.stage_wire_bytes(st, n_workers)} wire B"
+            state = (f", {state_per_stage[k]} state B"
+                     if state_per_stage[k] else "")
+            trig = f", trigger={st.trigger}" if st.trigger else ""
+            lines.append(
+                f"  stage {k}: {st.kind} bucket {st.bucket_id}, "
+                f"{len(st.leaf_ids)} leaves (ready@{st.ready_key}"
+                f"{trig}), "
+                f"{self.stage_collectives(st)} collectives{wire}{state}")
+        if n_workers is not None and self.config.is_hierarchical:
+            hops = self.hop_wire_bytes(n_workers)
+            lines.append("  per-hop wire B (outermost level first): "
+                         + ", ".join(f"L{k}={b}"
+                                     for k, b in enumerate(hops)))
+        return "\n".join(lines)
+
+    # -- telemetry naming ----------------------------------------------------
+    def stage_name(self, stage: BucketStage,
+                   index: Optional[int] = None) -> str:
+        """Structured name of one stage, the identity telemetry keys
+        everything on (stage scopes, wire-recorder attribution, trace
+        rows, the predicted-vs-measured report):
+
+            exchange/s03/allreduce/bucket=dense2[/trigger=block5]
+        """
+        if index is None:
+            return self._stage_names_by_key[(stage.kind, stage.bucket_id)]
+        if stage.kind == "dense":
+            coll = self.dense_buckets[stage.bucket_id].collective
+            bucket = f"dense{stage.bucket_id}"
+        else:
+            coll = ALLGATHER
+            bucket = f"leaf{stage.bucket_id}"
+        name = f"exchange/s{index:02d}/{coll}/bucket={bucket}"
+        if stage.trigger:
+            name += f"/trigger={stage.trigger}"
+        return name
+
+    def stage_names(self) -> Tuple[str, ...]:
+        """Stage names in schedule order (one per stage)."""
+        return tuple(self._stage_names_by_key.values())
+
+    @functools.cached_property
+    def _stage_names_by_key(self) -> Dict[Tuple[str, int], str]:
+        # built once per plan: the exchange names every stage on every step
+        return {(s.kind, s.bucket_id): self.stage_name(s, k)
+                for k, s in enumerate(self.schedule.stages)}
+
     # -- codec state ---------------------------------------------------------
     def init_state(self, device=None, grads=None) -> ExchangeState:
         """Initial codec state: one entry per schedule stage (``()`` for
@@ -765,7 +896,7 @@ class ExchangePlan:
         codec = self.config.codec_obj
         be = self.config.backend_obj
         bucket = self.dense_buckets[stage.bucket_id]
-        buf = self.pack_bucket(bucket, leaves)
+        buf = _telemetry.tap("pack", self.pack_bucket(bucket, leaves))
         if not codec.linear and self.config.is_hierarchical \
                 and len(groups) > 1:
             return self._hop_reduce_dense(buf, bstate, groups)
@@ -801,11 +932,12 @@ class ExchangePlan:
         """Wait, decode-sum (gathered non-linear payloads) + unpack."""
         if len(inflight) == 3:
             g_wire, g_scale, n_chunks = inflight
+            g_wire, g_scale = comm.wait(g_wire), comm.wait(g_scale)
             buf = self.config.codec_obj.reduce_hop(
-                comm.wait(g_wire), comm.wait(g_scale), n_chunks,
+                _telemetry.tap("collective", g_wire), g_scale, n_chunks,
                 torch.float32)
         else:
-            buf = comm.wait(inflight[0])
+            buf = _telemetry.tap("collective", comm.wait(inflight[0]))
         self.unpack_bucket(self.dense_buckets[stage.bucket_id], buf, out,
                            inv_scale)
 
@@ -818,6 +950,7 @@ class ExchangePlan:
         s = leaves[stage.bucket_id]
         be = self.config.backend_obj
         wire, scale = self.config.codec_obj.encode(s.values)
+        wire = _telemetry.tap("pack", wire)
         rows = s.values.shape[0]
         if not groups:
             return (s.indices, wire, scale, rows)
@@ -835,6 +968,7 @@ class ExchangePlan:
         codec = self.config.codec_obj
         dtype = comm.torch_dtype(spec.dtype)
         g_idx, g_wire, g_scales = (comm.wait(x) for x in inflight[:3])
+        g_idx = _telemetry.tap("collective", g_idx)
         rows = inflight[3]
         if g_scales is None:
             g_vals = codec.decode(g_wire, None, dtype)
@@ -861,20 +995,25 @@ class ExchangePlan:
         allgather, the hierarchical per-hop reduction) waits here on all
         but its last."""
         groups = self._check_groups(group)
-        if stage.kind == "dense":
-            return self._launch_dense(stage, leaves, groups,
-                                      comm.axis_size(groups), bstate)
-        return self._launch_gather(stage, leaves, groups), bstate
+        with _stage_scope(self.stage_name(stage)):
+            if stage.kind == "dense":
+                return self._launch_dense(stage, leaves, groups,
+                                          comm.axis_size(groups), bstate)
+            return self._launch_gather(stage, leaves, groups), bstate
 
     def finish_stage(self, stage: BucketStage, inflight: Tuple,
                      out: List[Any], inv_scale: Optional[float],
                      p: int) -> None:
         """Unpack one launched stage into ``out`` (decode, densify
-        gathers, restore dtypes, apply averaging)."""
-        if stage.kind == "dense":
-            self._finish_dense(stage, inflight, out, inv_scale)
-        else:
-            self._finish_gather(stage, inflight, out, inv_scale, p)
+        gathers, restore dtypes, apply averaging).  Its ``collective``
+        tap fires once the stage's collectives have been waited for (on
+        the card: an event recorded after them on the stream)."""
+        with _stage_scope(self.stage_name(stage)):
+            if stage.kind == "dense":
+                self._finish_dense(stage, inflight, out, inv_scale)
+            else:
+                self._finish_gather(stage, inflight, out, inv_scale, p)
+            _tap_first("unpack", stage, out)
 
     def _flatten_checked(self, grads) -> List[Any]:
         leaves, treedef = tree_flatten(grads)
@@ -911,10 +1050,14 @@ class ExchangePlan:
     def _accumulate_stage(self, stage: BucketStage, raw: List[Any],
                          acc: List[Any]) -> None:
         """Fold this stage's leaves to their classified representation
-        (the per-stage part of the paper's step 1)."""
-        for i in stage.leaf_ids:
-            acc[i] = _accumulate_leaf(raw[i], self.leaf_specs[i],
-                                      self.config)
+        (the per-stage part of the paper's step 1).  Its ``accumulate``
+        tap fires for every stage, a leaf whose densification is deferred
+        to pack included (the reference taps array leaves only)."""
+        with _stage_scope(self.stage_name(stage)):
+            for i in stage.leaf_ids:
+                acc[i] = _accumulate_leaf(raw[i], self.leaf_specs[i],
+                                          self.config)
+            _tap_first("accumulate", stage, acc)
 
     def _exchange_setup(self, grads, group: comm.Group, average: bool,
                         state):
@@ -1017,17 +1160,19 @@ class ExchangePlan:
         bucket = self.dense_buckets[b_id]
         codec = self.config.codec_obj
         be = self.config.backend_obj
-        buf = self.pack_bucket(bucket, leaves)
-        if codec.linear:
-            if groups:
-                buf = comm.wait(be.broadcast(buf, groups, root=root))
-        else:
-            wire, scale = codec.encode(buf)
-            if groups:
-                wire = comm.wait(be.broadcast(wire, groups, root=root))
-                scale = comm.wait(be.broadcast(scale, groups, root=root))
-            buf = codec.decode(wire, scale, "float32")
-        self.unpack_bucket(bucket, buf, out, None)
+        with _stage_scope(f"exchange/broadcast/bucket=dense{b_id}"):
+            buf = self.pack_bucket(bucket, leaves)
+            if codec.linear:
+                if groups:
+                    buf = comm.wait(be.broadcast(buf, groups, root=root))
+            else:
+                wire, scale = codec.encode(buf)
+                if groups:
+                    wire = comm.wait(be.broadcast(wire, groups, root=root))
+                    scale = comm.wait(be.broadcast(scale, groups,
+                                                   root=root))
+                buf = codec.decode(wire, scale, "float32")
+            self.unpack_bucket(bucket, buf, out, None)
 
 
     # -- ZeRO-1 execution (the exchange fused with the update) ---------------
@@ -1057,12 +1202,17 @@ class ExchangePlan:
         params ride back instead); a quantised wire is allgathered with
         its scales, as the replicated path does.  Returns ``(inflight,
         new bucket state)`` for ``zero1_finish_grad``."""
+        with _stage_scope(self.stage_name(stage)):
+            return self._zero1_launch_grad(stage, leaves, group, bstate)
+
+    def _zero1_launch_grad(self, stage: BucketStage, leaves: List[Any],
+                           group: comm.Group, bstate) -> Tuple[Tuple, Any]:
         groups = self._check_groups(group)
         p = comm.axis_size(groups)
         bucket = self.dense_buckets[stage.bucket_id]
         codec = self.config.codec_obj
         wire, scale, bstate = codec.encode_stateful(
-            self.pack_bucket(bucket, leaves), bstate)
+            _telemetry.tap("pack", self.pack_bucket(bucket, leaves)), bstate)
         if codec.linear:
             if scale is not None:
                 raise ValueError(
@@ -1088,14 +1238,23 @@ class ExchangePlan:
         of the full bucket padded and sliced to this worker's chunk (so
         gradients and error-feedback residuals are the replicated
         path's), then averaged (f32 first, then ``* inv_scale``)."""
+        with _stage_scope(self.stage_name(stage)):
+            return self._zero1_finish_grad(stage, inflight, group,
+                                           inv_scale)
+
+    def _zero1_finish_grad(self, stage: BucketStage, inflight: Tuple,
+                           group: comm.Group,
+                           inv_scale: Optional[float]) -> torch.Tensor:
         groups = self._check_groups(group)
         p = comm.axis_size(groups)
         if len(inflight) == 1:
-            shard = comm.wait(inflight[0]).to(torch.float32)
+            shard = _telemetry.tap("collective",
+                                   comm.wait(inflight[0])).to(torch.float32)
         else:
             g_wire, g_scale, n_chunks = inflight
+            g_wire, g_scale = comm.wait(g_wire), comm.wait(g_scale)
             red = self.config.codec_obj.reduce_hop(
-                comm.wait(g_wire), comm.wait(g_scale), n_chunks,
+                _telemetry.tap("collective", g_wire), g_scale, n_chunks,
                 torch.float32)
             n = self.zero1_shard_elems(stage, p)
             red = _pad(red, n * p)
@@ -1112,25 +1271,30 @@ class ExchangePlan:
         through the (stateless) param codec and unpack the reassembled
         bucket into ``out``'s param leaves, each cast to its dtype.  A
         quantised param wire decodes each worker's chunk against that
-        worker's own scale, as the gather path does; it never sums."""
+        worker's own scale, as the gather path does; it never sums.  The
+        param half bills to the same stage name as the grad half, so a
+        stage's recorded wire totals its whole schedule."""
         groups = self._check_groups(group)
         p = comm.axis_size(groups)
         bucket = self.dense_buckets[stage.bucket_id]
         pc = self.config.param_codec_obj
         be = self.config.backend_obj
-        wire, scale = pc.encode(shard.to(torch.float32))
-        if not groups:
-            buf = pc.decode(wire, scale, torch.float32)
-        elif pc.linear:
-            buf = pc.decode(comm.wait(be.all_gather(wire, groups)), None,
-                            torch.float32)
-        else:
-            g_wire = comm.wait(be.all_gather(wire, groups))
-            g_scale = comm.wait(be.all_gather(scale, groups))
-            per = g_wire.to(torch.float32).reshape(p, shard.shape[0])
-            per = per * g_scale.to(torch.float32).reshape(p, 1)
-            buf = per.reshape(-1)
-        self.unpack_bucket(bucket, buf[:bucket.n_elems], out, None)
+        with _stage_scope(self.stage_name(stage)):
+            wire, scale = pc.encode(shard.to(torch.float32))
+            if not groups:
+                buf = pc.decode(wire, scale, torch.float32)
+            elif pc.linear:
+                buf = pc.decode(comm.wait(be.all_gather(wire, groups)),
+                                None, torch.float32)
+            else:
+                g_wire = comm.wait(be.all_gather(wire, groups))
+                g_scale = comm.wait(be.all_gather(scale, groups))
+                per = g_wire.to(torch.float32).reshape(p, shard.shape[0])
+                per = per * g_scale.to(torch.float32).reshape(p, 1)
+                buf = per.reshape(-1)
+            buf = _telemetry.tap("collective", buf)
+            self.unpack_bucket(bucket, buf[:bucket.n_elems], out, None)
+            _tap_first("unpack", stage, out)
 
 
 def _pad(x: torch.Tensor, n: int) -> torch.Tensor:

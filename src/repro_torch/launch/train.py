@@ -33,6 +33,16 @@ kernels are always on the exchange path
 (``ExchangeConfig(use_kernel=True)``).  Runs on the card unless
 ``--device cpu`` is given.
 
+Telemetry: a run with overlap, a stateful codec, ``--zero1`` or the
+hierarchical backend logs the plan's schedule and accounting
+(``print_exchange_schedule``, costed under ``--profile``);
+``--metrics-jsonl F`` streams per-step rows (loss, ``step_ms`` split into
+``data_ms`` / ``compute_ms``, tok/s), the windowed history and a summary
+to F (rank 0); ``--trace-dir D`` captures one traced step at the final
+weights after training (on copies of the state) and writes
+``D/trace.json``, a Chrome trace of the exchange's stages that
+``scripts/trace_report_torch.py`` summarizes.
+
 Example (4 cards):
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
     --arch transformer-big --dist horovod --grad-accum dense_reduce \
@@ -55,6 +65,7 @@ from repro_torch.core import (DistributedOptimizer, ExchangeConfig,
 from repro_torch.data import make_pipeline
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, noam_schedule
+from repro_torch.telemetry.metrics import MetricsLogger, StepRecorder
 from repro_torch.training import Trainer, TrainerConfig, make_train_step
 from repro_torch.training.gradients import wait_free_contribution_structs
 
@@ -123,6 +134,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--profile", default="ethernet",
+                    help="BandwidthProfile preset name or JSON path (the "
+                         "cost model's predicted_comm_us estimates)")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="stream per-step metrics (loss, step_ms split "
+                         "into data_ms/compute_ms, tok/s, overflow-"
+                         "skipped steps) and the run history to this "
+                         "JSONL file")
+    ap.add_argument("--trace-dir", default=None,
+                    help="after training, capture one traced step (a "
+                         "phase tap at every exchange stage boundary and "
+                         "the runtime wire-byte counters) and write a "
+                         "Chrome-trace JSON here; summarize with "
+                         "scripts/trace_report_torch.py")
     return ap.parse_args(argv)
 
 
@@ -189,6 +214,55 @@ def pod_groups(rank: int, world: int):
     return cross[rank % half], within[rank // half]
 
 
+def exchange_workers(args, opt, world: int):
+    """The worker count the plan's accounting is priced at: 1 for
+    ``--dist local``, ``(2, world // 2)`` on the hierarchical backend,
+    else the world."""
+    if args.dist != "horovod":
+        return 1
+    if opt.exchange_config.backend == "hierarchical":
+        return (2, world // 2)
+    return world
+
+
+def print_exchange_schedule(args, opt, grads, world: int,
+                            log: Callable[[str], None] = print) -> None:
+    """Log the plan's BucketSchedule: what the step will actually run,
+    stage by stage, with codec-state (residual) memory, the per-hop wire
+    split on hierarchical runs and the cost model's prediction under
+    ``--profile``.  Informational: a failure is logged, not raised."""
+    try:
+        log(opt.exchange_stats(grads, n_workers=exchange_workers(
+            args, opt, world), profile=args.profile).describe())
+    except Exception as e:                       # informational only
+        log(f"(exchange schedule unavailable: {e})")
+
+
+def capture_training_trace(args, opt, grads, step_fn, trainer, result,
+                           world: int,
+                           log: Callable[[str], None] = print) -> dict:
+    """``--trace-dir``: capture one traced step at the final state and
+    write ``trace.json`` there (rank 0), then log the predicted-vs-
+    measured table.  The training loop itself ran untraced; the capture
+    runs on copies of the final state (``StepTracer.capture``), so the
+    returned training state is the loop's.  Every rank must call it.
+    Returns the trace."""
+    from repro_torch.telemetry import report as report_lib
+    from repro_torch.telemetry import trace as trace_lib
+    fn_args = (result["params"], result["opt_state"],
+               result["exchange_state"], trainer.batch_at(0))
+    os.makedirs(args.trace_dir, exist_ok=True)
+    out_path = os.path.join(args.trace_dir, "trace.json")
+    trace = trace_lib.capture_exchange_trace(
+        opt.plan(grads), step_fn, fn_args, exchange_workers(args, opt, world),
+        profile=args.profile, out_path=out_path,
+        extra_meta={"arch": args.arch, "dist": args.dist,
+                    "steps": args.steps})
+    log(f"trace written: {out_path}")
+    log(report_lib.render_table(report_lib.predicted_vs_measured(trace)))
+    return trace
+
+
 def meta_worker_grads(args, model, pipe, sparse_embedding: bool):
     """One worker's gradient-contribution tree on ``meta`` tensors (no
     memory, no compute): the structure the ExchangePlan and its
@@ -244,10 +318,20 @@ def run(argv=None, log: Optional[Callable[[str], None]] = None
                              task=args.task)
         meta = meta_worker_grads(args, model, pipe, sparse_embedding)
         ex_state = opt.init_exchange_state(meta, device=device)
+        ex_cfg = opt.exchange_config
+        if ex_cfg.overlap or ex_cfg.codec_obj.stateful or ex_cfg.zero1 \
+                or ex_cfg.backend == "hierarchical":
+            print_exchange_schedule(args, opt, meta, world, log)
         # under zero1 the optimizer state is this rank's slice of the
         # Zero1State, laid out along the plan's bucket partition
         opt_state = (opt.init_zero1_state(meta, params) if opt.zero1
                      else opt.init(params))
+        recorder = None
+        if args.metrics_jsonl and rank == 0:
+            # the global token count the Trainer's tok_per_s uses
+            recorder = StepRecorder(
+                MetricsLogger(args.metrics_jsonl),
+                tokens_per_step=int(pipe.batch_at(0)["tokens"].size))
         trainer = Trainer(model, step, pipe, TrainerConfig(
             total_steps=args.steps, log_every=args.log_every,
             checkpoint_every=args.checkpoint_every,
@@ -255,8 +339,17 @@ def run(argv=None, log: Optional[Callable[[str], None]] = None
             device=device, rank=rank, world=world,
             checkpoint=ShardedCheckpoint(
                 opt.plan(meta),
-                dist.group.WORLD if args.dist == "horovod" else None))
+                dist.group.WORLD if args.dist == "horovod" else None),
+            recorder=recorder)
         result = trainer.run(params, opt_state, ex_state, log=log)
+        if recorder is not None:
+            for h in result["history"]:
+                recorder.logger.emit("history", **h)
+            recorder.close()
+            log(f"metrics written: {args.metrics_jsonl}")
+        if args.trace_dir:
+            capture_training_trace(args, opt, meta, step, trainer, result,
+                                   world, log)
     finally:
         if created:
             dist.destroy_process_group()

@@ -291,7 +291,7 @@ def zero1_step(plan, base, grads, params, z_state: Zero1State,
         if st.kind == "dense":
             inflight[k], bs = plan.zero1_launch_grad(st, acc, group, bs)
         else:
-            inflight[k] = plan._launch_gather(st, acc, groups)
+            inflight[k], bs = plan.launch_stage(st, acc, group, bs)
         new_states.append(bs)
     del acc, raw
     shard_grads: dict = {}
@@ -301,8 +301,8 @@ def zero1_step(plan, base, grads, params, z_state: Zero1State,
             shard_grads[k] = plan.zero1_finish_grad(st, inflight.pop(k),
                                                     group, inv_scale)
         else:
-            plan._finish_gather(st, inflight.pop(k), gather_grads,
-                                inv_scale, p)
+            plan.finish_stage(st, inflight.pop(k), gather_grads,
+                              inv_scale, p)
 
     # the optimizer half: the flat update of this rank's shards, then
     # the updated params ride back through the schedule

@@ -1,18 +1,26 @@
-"""Counters, gauges, latency histograms and a JSONL sink
-(``repro.telemetry.metrics`` without its ``StepRecorder``).
+"""Counters, gauges, latency histograms, a JSONL sink and the Trainer's
+``StepRecorder`` (``repro.telemetry.metrics``).
 
-Plain host-side bookkeeping: nothing here touches a tensor.  Every JSONL
+Plain host-side bookkeeping.  Every JSONL
 record carries ``{"schema": SCHEMA, "kind": <kind>}``, the reference's
 schema, so one reader takes both packages' lines.  The serving engine and
 the continuous batcher record into a ``MetricsLogger``: counters
 (``sched/steps``, ``sched/completed``, ...), gauges
 (``sched/queue_depth``, ...) and the ``serve/ttft`` / ``serve/tpot``
 latency histograms whose p50/p99 ``LatencyHistogram.summary`` gives.
+
+``StepRecorder`` is the Trainer integration: per-step loss / tok_s /
+``step_ms`` split into ``data_ms`` (host batch fetch) vs ``compute_ms``,
+plus overflow-skip counting.  Device values (the loss, the scaler's
+overflow flag) are held as tensors until a flush boundary, so recording
+adds no per-step wait for the device beyond what the Trainer's logging
+already forces.
 """
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 SCHEMA = 1
@@ -117,3 +125,71 @@ class MetricsLogger:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+
+
+class StepRecorder:
+    """Per-step Trainer instrumentation.
+
+    Call order per step: ``step_start()`` -> ``data_loaded()`` (after the
+    host batch fetch) -> ``step_end(metrics)``.  Device metrics are held
+    as they are until ``flush()`` (the Trainer's log boundary) converts
+    and writes them, so recording adds no extra wait for the device."""
+
+    def __init__(self, logger: Optional[MetricsLogger] = None,
+                 tokens_per_step: Optional[int] = None) -> None:
+        self.logger = logger or MetricsLogger()
+        self.tokens_per_step = tokens_per_step
+        self.rows: List[Dict[str, Any]] = []
+        self._pending: List[Dict[str, Any]] = []
+        self._step = 0
+        self._t0 = self._t_data = None
+
+    # -- per-step marks -----------------------------------------------------
+    def step_start(self) -> None:
+        self._t0 = time.perf_counter()
+        self._t_data = None
+
+    def data_loaded(self) -> None:
+        self._t_data = time.perf_counter()
+
+    def step_end(self, metrics: Optional[Dict[str, Any]] = None) -> None:
+        t1 = time.perf_counter()
+        t_data = self._t_data if self._t_data is not None else self._t0
+        row: Dict[str, Any] = {
+            "step": self._step,
+            "step_ms": (t1 - self._t0) * 1e3,
+            "data_ms": (t_data - self._t0) * 1e3,
+            "compute_ms": (t1 - t_data) * 1e3,
+        }
+        if self.tokens_per_step:
+            row["tok_s"] = self.tokens_per_step / max(t1 - self._t0, 1e-9)
+        self._pending.append({"row": row, "metrics": dict(metrics or {})})
+        self._step += 1
+
+    # -- flush boundary -----------------------------------------------------
+    def flush(self) -> List[Dict[str, Any]]:
+        """Convert pending device metrics to host floats, emit JSONL
+        ``step`` records, and return the new rows."""
+        out = []
+        for p in self._pending:
+            row, metrics = p["row"], p["metrics"]
+            for k, v in metrics.items():
+                try:
+                    row[k] = float(v)
+                except (TypeError, ValueError, RuntimeError):
+                    continue
+            if row.get("overflow"):
+                self.logger.counter("overflow_skipped_steps").inc()
+            self.logger.emit("step", **row)
+            self.rows.append(row)
+            out.append(row)
+        self._pending.clear()
+        return out
+
+    def overflow_skipped(self) -> int:
+        return self.logger.counter("overflow_skipped_steps").value
+
+    def close(self) -> None:
+        self.flush()
+        self.logger.emit_summary()
+        self.logger.close()

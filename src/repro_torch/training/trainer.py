@@ -1,5 +1,5 @@
 """Trainer: the end-to-end loop (data -> step -> metrics -> checkpoint),
-the ``repro.training.trainer`` loop without a recorder.
+the ``repro.training.trainer`` loop.
 
 A step whose metrics carry ``overflow`` (a loss-scaled step that skipped
 its update) is counted; the flags stay on the device until a log line
@@ -7,7 +7,11 @@ reads them, so the loop adds no per-step wait.  Every
 ``checkpoint_every`` steps ``(params, opt_state, exchange_state)`` is
 saved through ``checkpoint`` (a ``ShardedCheckpoint``: the reference's
 file, the global view of the ranks' slices); ``resume`` restores the
-latest one and continues from its step."""
+latest one and continues from its step.  A ``recorder``
+(``telemetry.metrics.StepRecorder``) records every step's ``step_ms``
+split into ``data_ms`` and ``compute_ms`` and its metrics, held on the
+device until it is flushed at each log boundary and at the end.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +45,7 @@ class Trainer:
     world: int = 1
     checkpoint: Any = None              # ShardedCheckpoint; None: a world
     #                                     of 1 (the local view is global)
+    recorder: Any = None                # telemetry.metrics.StepRecorder
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
         """This worker's rows of the global batch (the contiguous dim-0
@@ -61,6 +66,7 @@ class Trainer:
         ``config.checkpoint_dir`` (if any) replaces the three and the loop
         starts after its step."""
         cfg = self.config
+        rec = self.recorder
         ckpt = self.checkpoint or ShardedCheckpoint()
         start_step = 0
         if cfg.resume and cfg.checkpoint_dir:
@@ -78,13 +84,19 @@ class Trainer:
         window_t0, window_steps = t0, 0
         window_data_ms = 0.0
         for step in range(start_step, cfg.total_steps):
+            if rec is not None:
+                rec.step_start()
             t_fetch = time.perf_counter()
             batch = self.batch_at(step)
             window_data_ms += (time.perf_counter() - t_fetch) * 1e3
+            if rec is not None:
+                rec.data_loaded()
             params, opt_state, exchange_state, metrics = self.step_fn(
                 params, opt_state, exchange_state, batch)
             if "overflow" in metrics:
                 overflow_pending.append(metrics["overflow"])
+            if rec is not None:
+                rec.step_end(metrics)
             tokens_seen += batch["tokens"].numel() * self.world
             window_steps += 1
             if (step + 1) % cfg.log_every == 0 or step == cfg.total_steps - 1:
@@ -112,9 +124,13 @@ class Trainer:
                     f"tok/s={m['tok_per_s']:.0f} "
                     f"step_ms={m['step_ms']:.1f} "
                     f"data_ms={m['data_ms']:.2f}{skipped}")
+                if rec is not None:
+                    rec.flush()
             if (cfg.checkpoint_every and cfg.checkpoint_dir
                     and (step + 1) % cfg.checkpoint_every == 0):
                 ckpt.save(cfg.checkpoint_dir, step + 1,
                           (params, opt_state, exchange_state))
+        if rec is not None:
+            rec.flush()
         return {"params": params, "opt_state": opt_state,
                 "exchange_state": exchange_state, "history": history}

@@ -3,9 +3,10 @@
 Imported by the spawned processes of tests/test_torch_exchange.py
 (``run``), tests/test_torch_overlap.py (``run_overlap``),
 tests/test_torch_backend_world.py (``run_backends``),
-tests/test_torch_zero1_world.py (``run_zero1``) and
-tests/test_torch_hot_swap.py (``run_broadcast``); it imports torch and
-the port only.
+tests/test_torch_zero1_world.py (``run_zero1``),
+tests/test_torch_hot_swap.py (``run_broadcast``) and
+tests/test_torch_trace_world.py (``run_trace``); it imports torch and the
+port only.
 """
 import numpy as np
 import torch
@@ -465,3 +466,138 @@ def run_broadcast(rank: int, world: int, port: int, out_dir: str) -> None:
     finally:
         dist.destroy_process_group()
 
+
+#: the traced exchanges: (backend, ExchangeConfig keywords)
+TRACE_CASES = {
+    "identity-fused": ("flat", dict(sparse_as_dense=True)),
+    "int8": ("flat", dict(sparse_as_dense=True, codec="int8")),
+    "rs-ag": ("flat", dict(sparse_as_dense=True, reduce_scatter=True)),
+    "ringsim": ("ringsim", dict(sparse_as_dense=True)),
+    "staged": ("flat", dict(sparse_as_dense=True, codec="int8",
+                            overlap="staged")),
+    "f8e4m3": ("flat", dict(sparse_as_dense=True, codec="f8e4m3")),
+    "hierarchical": ("hierarchical", dict(sparse_as_dense=True)),
+    "hierarchical_int8": ("hierarchical", dict(sparse_as_dense=True,
+                                               codec="int8")),
+    "sparse_gather_int8": ("flat", dict(codec="int8")),
+    "ringsim_sparse_gather": ("ringsim", dict()),
+    "int8+ef": ("flat", dict(sparse_as_dense=True, codec="int8+ef")),
+    "zero1_param_int8": ("flat", dict(sparse_as_dense=True, zero1=True,
+                                      param_codec="int8")),
+    "zero1_int8+ef": ("flat", dict(sparse_as_dense=True, zero1=True,
+                                   codec="int8+ef")),
+}
+
+
+def flat_tensors(x) -> list:
+    """Every tensor in ``x`` (dicts in key order, sequences, named tuples,
+    dataclasses and ExchangeState walked)."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in flat_tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in flat_tensors(v)]
+    if hasattr(x, "bucket_states"):
+        return flat_tensors(x.bucket_states)
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x)
+                for t in flat_tensors(getattr(x, f.name))]
+    return []
+
+
+def bitwise(a, b) -> bool:
+    ta, tb = flat_tensors(a), flat_tensors(b)
+    return len(ta) == len(tb) > 0 and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.view(torch.uint8) if x.dtype.itemsize == 1
+                        else x, y.view(torch.uint8)
+                        if y.dtype.itemsize == 1 else y)
+        for x, y in zip(ta, tb))
+
+
+def run_trace(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Per ``TRACE_CASES`` entry over a gloo world: ``measure_wire``'s
+    per-stage bytes beside the plan's, the caller's tensors before and
+    after it, the comm counters of an untraced exchange, a traced run
+    (``StepTracer.capture``) against the untraced one, and the trace
+    ``capture_exchange_trace`` assembles from every rank."""
+    from repro_torch.core import comm
+    from repro_torch.launch.train import pod_groups
+    from repro_torch.telemetry import hooks, report, trace
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        pods = pod_groups(rank, world)
+        results = {}
+        for name, (be, kw) in TRACE_CASES.items():
+            hier = be == "hierarchical"
+            levels = (2, world // 2) if hier else world
+            opt = DistributedOptimizer(
+                adamw(1e-3), exchange=ExchangeConfig(
+                    backend=be, use_kernel=True, **kw),
+                group=pods if hier else dist.group.WORLD)
+            g = worker_grads(rank)
+            plan = opt.plan(g)
+            state = opt.init_exchange_state(g)
+            if plan.config.zero1:
+                rng = np.random.default_rng(9)
+                params = {"embedding": torch.from_numpy(
+                              rng.standard_normal((VOCAB, D)).astype(
+                                  np.float32)),
+                          "layers": {"w": torch.ones(3, D, 5),
+                                     "b": torch.zeros(5)}}
+                z = opt.init_zero1_state(g, params)
+                fn = lambda gg, pp, zz, ss: opt.zero1_step(
+                    gg, pp, zz, exchange_state=ss)
+                args = (g, params, z, state)
+            else:
+                fn = lambda gg, ss: opt.exchange(gg, state=ss)
+                args = (g, state)
+            if name == "int8+ef":
+                # a residual a previous exchange left
+                args = (g, fn(worker_grads(rank, 1),
+                              trace.copy_tensors(state))[1])
+            before = trace.copy_tensors(args)
+            rec = trace.measure_wire(fn, *args)
+            r = {"recorded": rec.as_dict(),
+                 "planned": {n: plan.stage_wire_bytes(s, levels)
+                             for n, s in zip(plan.stage_names(),
+                                             plan.schedule.stages)},
+                 "planned_hops": {n: plan.stage_hop_wire_bytes(s, levels)
+                                  for n, s in zip(plan.stage_names(),
+                                                  plan.schedule.stages)},
+                 "unchanged": bitwise(args, before),
+                 "residuals": sum(isinstance(t, torch.Tensor)
+                                  for t in args[-1].bucket_states)}
+            comm.reset_calls()
+            plain = fn(*trace.copy_tensors(args))
+            r["calls"] = comm.calls()
+            r["plan_calls"] = plan.hlo_collectives(levels)
+            r["hooks_off"] = (hooks.wire_recorder() is None
+                              and hooks.tracer() is None)
+            traced = trace.StepTracer().capture(fn, *args)
+            r["traced_bitwise"] = bitwise(plain, traced)
+            t = trace.capture_exchange_trace(plan, fn, args, levels)
+            rows = report.predicted_vs_measured(t)
+            slices = [e for e in t["traceEvents"]
+                      if e.get("cat") == "exchange"]
+            r["trace"] = {
+                "names": list(plan.stage_names()),
+                "phases": {n: sorted({e["name"] for e in slices
+                                      if e["args"]["stage"] == n})
+                           for n in plan.stage_names()},
+                "stages": sorted({e["args"]["stage"] for e in slices}),
+                "min_dur": min(e["dur"] for e in t["traceEvents"]
+                               if e["ph"] == "X"),
+                "n_workers_traced":
+                    report.summarize_trace(t)["n_workers_traced"],
+                "wire_exact": report.wire_exact(rows),
+                "n_workers": t["otherData"]["n_workers"]}
+            r["unchanged_after_all"] = bitwise(args, before)
+            results[name] = r
+        torch.save(results, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
