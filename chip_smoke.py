@@ -330,6 +330,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
                us, the trace's step us beside the untraced step's wall ms
                and device busy ms, and the traced minus untraced wall
                (medians of 5 steps each, in turns).
+ 15. tuning  — tuning's search at the full width of transformer-big, a
+               world of 1 over NCCL: ``search`` with 2 measured trials of
+               its 4 candidates (``TUNING_SPACE``: identity and int8+ef,
+               dense and gather, fused, 128 MiB buckets), each end to end
+               at 8 x 256 tokens with ``use_kernel=True``; densify, the
+               encodes (the int8+ef dense stages' the fused one) and the
+               decode-sums counted exactly against each candidate's plan
+               times its 4 calls; every candidate finite, the winner the
+               least median and every rank's; then ``launch/tune.py
+               --full-size --audit-workers 1 --trials 0`` into
+               ``build/tuning`` and ``launch/train.py --tuned`` for 3
+               steps from that artifact ("tuned exchange:" logged, no
+               fallback, finite losses, the kernels counted against the
+               tuned plan);
+ 16. examples — each ``examples/*_torch.py`` once through its ``main``
+               on the card with small arguments, counters reset before
+               and read after: densify in quickstart (60), train_nmt
+               (``--small``, 3) and scaling_comparison (a world of 1,
+               12), one stateless quantize a bucket of serve_batch's and
+               continuous_serving's ``--hot-swap --swap-codec int8``, and
+               quickstart's two strategies the same model within 1e-4.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -1150,11 +1171,12 @@ def phase_int8_wire_kernel(Q, train) -> dict:
     return timing
 
 
-def exchange_plan(train, argv, scaled: bool = False):
+def exchange_plan(train, argv, scaled: bool = False, tuned=None):
     """The launcher's ExchangePlan for one worker's gradient tree (built
     on meta tensors, as the launcher builds its codec state); with
     ``scaled``, for that tree times an f32 loss scale (the loss-scaled
-    step's exchange)."""
+    step's exchange); with ``tuned``, for that ExchangeConfig in place of
+    the flags' (``--tuned``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model
@@ -1169,7 +1191,7 @@ def exchange_plan(train, argv, scaled: bool = False):
     grads = train.meta_worker_grads(args, model, pipe, True)
     if scaled:
         grads = _scale_grad_tree(grads, torch.ones((), device="meta"))
-    return train.build_optimizer(args, cfg, None).plan(grads)
+    return train.build_optimizer(args, cfg, None, tuned).plan(grads)
 
 
 def phase_codec_path(train, D, Q, comm, path) -> dict:
@@ -1313,18 +1335,29 @@ def read_counts(D, Q, comm) -> dict:
             "all_gather": comm.all_gather_dense.calls}
 
 
+def kernel_launches(plans_calls) -> dict:
+    """Launches that ``(plan, calls)`` pairs must make: densify once a
+    call; on an int8 wire one encode a stage and one decode-sum a dense
+    stage, and under +ef the dense stages' encodes the fused one."""
+    want = {"densify": 0, "quantize": 0, "quantize_ef": 0, "decode_sum": 0}
+    for plan, calls in plans_calls:
+        n_dense = sum(st.kind == "dense" for st in plan.schedule.stages)
+        codec = plan.config.codec
+        want["densify"] += calls
+        if codec.startswith("int8"):
+            want["quantize"] += calls * len(plan.schedule.stages)
+            want["decode_sum"] += calls * n_dense
+        if codec.endswith("+ef"):
+            want["quantize_ef"] += calls * n_dense
+    return want
+
+
 def check_counts(tag, got, plan, steps) -> None:
-    """Launches a run of ``steps`` steps must make, from the plan: one
-    densify a step; under int8+ef one fused encode a dense stage and one
-    decode-sum a dense stage, no stateless encode; the plan's
-    collectives, allreduces for a linear wire and allgathers else."""
-    stages = plan.schedule.stages
-    n_dense = sum(st.kind == "dense" for st in stages)
+    """Launches a dense_reduce run of ``steps`` steps must make, from the
+    plan: ``kernel_launches``, and the plan's collectives, allreduces for
+    a linear wire and allgathers else."""
     int8 = plan.config.codec.startswith("int8")
-    want = {"densify": steps,
-            "quantize": steps * len(stages) if int8 else 0,
-            "quantize_ef": steps * n_dense if int8 else 0,
-            "decode_sum": steps * n_dense if int8 else 0,
+    want = {**kernel_launches([(plan, steps)]),
             "all_reduce": 0 if int8 else steps * plan.n_collectives,
             "all_gather": steps * plan.n_collectives if int8 else 0}
     if got != want:
@@ -5344,6 +5377,194 @@ def phase_telemetry(train, D, Q, comm) -> dict:
                                 "decode_sum")}
 
 
+#: the measured search of the tuning phase: identity and int8+ef wires,
+#: dense and gather accumulation, fused, at the 128 MiB threshold: four
+#: candidates, all in the measured head, two of them on the int8+ef wire
+TUNING_SPACE = dict(codecs=("identity", "int8+ef"), overlaps=(False,),
+                    thresholds=(128 * 1024 * 1024,),
+                    include_reduce_scatter=False, include_zero1=False)
+TUNING_TRIALS, TUNING_TOP_K = 2, 4
+TUNED_STEPS = 3
+
+
+def tuning_search(train, D, Q, comm) -> dict:
+    """The measured search at full width (``TUNING_SPACE``), a world of 1
+    over NCCL, every candidate end to end at 8 x 256 tokens, its launches
+    counted against the candidates' plans."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.core.exchange import compile_plan
+    from repro_torch.models import build_model
+    from repro_torch.training.gradients import grad_contributions
+    from repro_torch.tuning import search
+    created = _world_of_one(train)
+    try:
+        args, cfg, batch_at = zero1_setup(train, FULL_WIDTH)
+        model = build_model(cfg)
+        params = model.init(seed=0, device=args.device)
+        batch = batch_at(0)
+        grads = grad_contributions(model, params, batch,
+                                   sparse_embedding=True)[0]
+        torch.cuda.synchronize()
+        reset_counts(D, Q, comm)
+        t0 = time.perf_counter()
+        res = search(grads, 1, profile="ethernet", trials=TUNING_TRIALS,
+                     top_k=TUNING_TOP_K, model=model, params=params,
+                     batch=batch, **TUNING_SPACE)
+        search_s = time.perf_counter() - t0
+        got = read_counts(D, Q, comm)
+        head = res.candidates[:TUNING_TOP_K]
+        bad = [(c.label, c.error) for c in head
+               if c.error or not math.isfinite(c.measured_us)]
+        if len(res.candidates) != TUNING_TOP_K or bad:
+            fail(f"tuning: candidates {[c.label for c in res.candidates]}, "
+                 f"failed {bad}")
+        if sum(c.config.codec == "int8+ef" for c in head) != 2:
+            fail("tuning: the measured head lacks the int8+ef candidates")
+        # each candidate ran twice untimed and TUNING_TRIALS times timed,
+        # with use_kernel=True (the launcher's rule)
+        calls = 2 + TUNING_TRIALS
+        want = kernel_launches([(compile_plan(grads, dataclasses.replace(
+            c.config, use_kernel=True)), calls) for c in head])
+        launches = {k: got[k] for k in want}
+        if launches != want:
+            fail(f"tuning search: launches {launches}, want {want} from "
+                 f"the measured plans")
+        best = min(head, key=lambda c: c.measured_us)
+        winners = [None] * dist.get_world_size()
+        dist.all_gather_object(winners, res.winner.label)
+        if res.winner is not best or set(winners) != {best.label}:
+            fail(f"tuning: winner {res.winner.label}, ranks' {winners}, "
+                 f"least median {best.label}")
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return {"search_s": search_s, "launches": launches,
+            "winner": res.winner.label,
+            "head": [{"label": c.label, "predicted_us": c.predicted_us,
+                      "measured_us": c.measured_us} for c in head]}
+
+
+def phase_tuning(train, D, Q, comm) -> dict:
+    """Tuning at the full width of transformer-big: the measured search
+    (``tuning_search``), then ``launch/tune.py --full-size
+    --audit-workers 1 --trials 0`` into ``build/tuning`` and
+    ``launch/train.py --tuned`` for ``TUNED_STEPS`` steps from the
+    artifact it wrote: "tuned exchange:" logged, no fallback, finite
+    losses, the kernels counted against the tuned plan.  Returns the
+    kernels' launches of the phase."""
+    import io
+    from repro_torch.launch import tune
+    from repro_torch.tuning import config_from_dict
+    measured = tuning_search(train, D, Q, comm)
+    torch.cuda.empty_cache()
+    cache = os.path.join(ROOT, "build", "tuning")
+    shutil.rmtree(cache, ignore_errors=True)
+    t0 = time.perf_counter()
+    tuned = tune.run_tune(n_workers=1, reduced=False, trials=0,
+                          cache_dir=cache, device="cuda")
+    tune_s = time.perf_counter() - t0
+    if not os.path.exists(tuned["artifact"]):
+        fail(f"tuning: launch/tune.py wrote no artifact at "
+             f"{tuned['artifact']}")
+    argv = FULL_WIDTH + ["--steps", str(TUNED_STEPS), "--tuned",
+                         "--tune-cache", cache]
+    plan = exchange_plan(train, argv,
+                         tuned=config_from_dict(tuned["winner_config"]))
+    lines, err = [], io.StringIO()
+    reset_counts(D, Q, comm)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        result = train.run(argv, log=lines.append)
+    train_s = time.perf_counter() - t0
+    got = read_counts(D, Q, comm)
+    losses = [h["loss"] for h in result["history"]]
+    step_ms = [h["step_ms"] for h in result["history"]]
+    del result
+    if "falling back" in err.getvalue() or not any(
+            ln.startswith(f"tuned exchange: {tuned['winner']} ")
+            for ln in lines):
+        fail(f"tuning: --tuned did not resolve the artifact: "
+             f"{lines[:2]} {err.getvalue()[-500:]}")
+    if len(losses) != TUNED_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"tuning: --tuned losses {losses}")
+    want = kernel_launches([(plan, TUNED_STEPS)])
+    launches = {k: got[k] for k in want}
+    if launches != want:
+        fail(f"tuning --tuned: launches {launches}, want {want} from the "
+             f"tuned plan")
+    print(json.dumps({
+        "phase": "tuning", **measured, "tune_s": tune_s,
+        "tune_winner": tuned["winner"],
+        "tune_candidates": tuned["n_candidates"],
+        "tune_head": tuned["ranking"][:4], "tuned_train_s": train_s,
+        "tuned_losses": losses,
+        "tuned_step_ms": step_ms,
+        "tuned_launches": launches}))
+    return {k: measured["launches"][k] + launches[k] for k in want}
+
+
+#: the five examples at small sizes on the card; the serving ones stream
+#: their hot swap on the int8 wire (the stateless quantize kernel)
+EXAMPLE_RUNS = (
+    ("quickstart", []),
+    ("train_nmt", ["--small", "--steps", "3"]),
+    ("scaling_comparison", []),
+    ("serve_batch", ["--max-new", "8", "--hot-swap", "--swap-codec",
+                     "int8"]),
+    ("continuous_serving", ["--hot-swap", "--swap-codec", "int8"]))
+#: densify launches of each training example's run: quickstart 2 x 30
+#: steps, train_nmt 3, scaling_comparison 2 strategies x (1 + 5) steps
+EXAMPLE_DENSIFY = {"quickstart": 60, "train_nmt": 3,
+                   "scaling_comparison": 12}
+
+
+def phase_examples(D, Q, comm) -> dict:
+    """Each ``examples/*_torch.py`` once on the card through its
+    ``main``, with the counters reset before and read after: densify in
+    the training examples (``EXAMPLE_DENSIFY``), one stateless quantize a
+    bucket of the serving examples' int8 hot swap, and quickstart's two
+    strategies giving the same model.  Returns the launches."""
+    import importlib.util
+    import io
+    totals = {"densify": 0, "quantize": 0}
+    for name, argv in EXAMPLE_RUNS:
+        path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+        spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        reset_counts(D, Q, comm)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = mod.main(argv + ["--device", "cuda"])
+        wall_s = time.perf_counter() - t0
+        got = read_counts(D, Q, comm)
+        want = {"densify": EXAMPLE_DENSIFY.get(name, 0),
+                "quantize": res.get("swap_buckets", 0) if isinstance(
+                    res, dict) else 0,
+                "quantize_ef": 0, "decode_sum": 0}
+        if {k: got[k] for k in want} != want or not want["densify"] \
+                + want["quantize"]:
+            fail(f"examples {name}: launches {got}, want {want}")
+        line = {"phase": "examples", "example": name, "wall_s": wall_s,
+                "launches": {k: got[k] for k in want},
+                "last_lines": out.getvalue().splitlines()[-3:]}
+        if name == "quickstart":
+            if not res["max_param_diff"] < 1e-4:
+                fail(f"examples quickstart: the strategies' models differ "
+                     f"by {res['max_param_diff']}")
+            line["max_param_diff"] = res["max_param_diff"]
+        if name == "scaling_comparison":
+            line["ms_per_step"] = {k: r["ms_per_step"]
+                                   for k, r in res["rows"].items()}
+        print(json.dumps(line))
+        for k in totals:
+            totals[k] += got[k]
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -5481,6 +5702,10 @@ def main() -> int:
     clock("small_serving", phase_small_serving)
     torch.cuda.empty_cache()
     tele = clock("telemetry", phase_telemetry, train, D, Q, comm)
+    torch.cuda.empty_cache()
+    tuning = clock("tuning", phase_tuning, train, D, Q, comm)
+    torch.cuda.empty_cache()
+    examples = clock("examples", phase_examples, D, Q, comm)
     small_flash = small_mla["flash_launches_by_variant"]
     swap, fused_swap = serving["swap"], serving["fused_swap"]
     swap_launches = swap["launches"] + fused_swap["launches"]
@@ -5493,7 +5718,7 @@ def main() -> int:
         + zero1["launches"]["densify"] + dense_path["densify_launches"]
         + seamless_path["densify_launches"] + moe_path["densify_launches"]
         + mla_path["densify_launches"] + xlstm_path["densify_launches"]
-        + tele["densify"],
+        + tele["densify"] + tuning["densify"] + examples["densify"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
@@ -5505,7 +5730,9 @@ def main() -> int:
                               "moe_path": moe_path["densify_launches"],
                               "mla_path": mla_path["densify_launches"],
                               "xlstm_path": xlstm_path["densify_launches"],
-                              "telemetry": tele["densify"]},
+                              "telemetry": tele["densify"],
+                              "tuning": tuning["densify"],
+                              "examples": examples["densify"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -5530,12 +5757,13 @@ def main() -> int:
         "launches": codec["quantize_launches"]
         + overlap["launches"]["quantize"] + backends["launches"]["quantize"]
         + zero1["launches"]["quantize"] + swap_launches
-        + tele["quantize"],
+        + tele["quantize"] + tuning["quantize"] + examples["quantize"],
         "launches_by_entry": {
             "repro_quantize_int8_ef": codec["quantize_ef_launches"]
             + overlap["launches"]["quantize_ef"]
             + backends["launches"]["quantize_ef"]
-            + zero1["launches"]["quantize_ef"] + tele["quantize_ef"],
+            + zero1["launches"]["quantize_ef"] + tele["quantize_ef"]
+            + tuning["quantize_ef"],
             "repro_quantize_int8": codec["quantize_launches"]
             - codec["quantize_ef_launches"]
             + overlap["launches"]["quantize"]
@@ -5544,17 +5772,21 @@ def main() -> int:
             - backends["launches"]["quantize_ef"]
             + zero1["launches"]["quantize"]
             - zero1["launches"]["quantize_ef"] + swap_launches
-            + tele["quantize"] - tele["quantize_ef"],
+            + tele["quantize"] - tele["quantize_ef"] + tuning["quantize"]
+            - tuning["quantize_ef"] + examples["quantize"],
             "repro_int8_decode_sum": codec["decode_sum_launches"]
             + overlap["launches"]["decode_sum"]
             + backends["launches"]["decode_sum"]
-            + zero1["launches"]["decode_sum"] + tele["decode_sum"]},
+            + zero1["launches"]["decode_sum"] + tele["decode_sum"]
+            + tuning["decode_sum"]},
         "launches_by_phase": {"codec": codec["quantize_launches"],
                               "overlap": overlap["launches"]["quantize"],
                               "backends": backends["launches"]["quantize"],
                               "zero1": zero1["launches"]["quantize"],
                               "serving": swap_launches,
-                              "telemetry": tele["quantize"]},
+                              "telemetry": tele["quantize"],
+                              "tuning": tuning["quantize"],
+                              "examples": examples["quantize"]},
         # the int8 hot swap of full-width llama3.2-1b: one stateless
         # encode a bucket (a bf16 leaf each at the default threshold)
         "hot_swap": {
@@ -5583,7 +5815,7 @@ def main() -> int:
                        + overlap["launches"]["decode_sum"]
                        + backends["launches"]["decode_sum"]
                        + zero1["launches"]["decode_sum"]
-                       + tele["decode_sum"],
+                       + tele["decode_sum"] + tuning["decode_sum"],
                        **wire["decode_sum"][1]},
         "f32_leaf": {
             "per_step_ms": wire["per_step"]["encode_f32_ms"],

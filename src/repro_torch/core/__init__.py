@@ -19,5 +19,6 @@ from repro_torch.core.codecs import (ExchangeState, WireCodec,
                                      register_codec)
 from repro_torch.core.exchange import (BucketSchedule, BucketStage,
                                        ExchangeConfig, ExchangePlan,
-                                       compile_plan)
+                                       clear_plan_cache, compile_plan,
+                                       plan_cache_info)
 from repro_torch.core.dist_opt import DistributedOptimizer, ExchangeStats

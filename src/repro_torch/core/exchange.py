@@ -64,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -76,7 +77,7 @@ from repro_torch.core.backend import ALLGATHER, ALLREDUCE, REDUCE_SCATTER
 from repro_torch.core.codecs import ExchangeState
 from repro_torch.core.indexed_slices import IndexedSlices, concat_slices
 from repro_torch.telemetry import hooks as _telemetry
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_unflatten, treedef_str
 
 Levels = Union[int, Sequence[int]]
 
@@ -446,6 +447,13 @@ class ExchangePlan:
     @property
     def n_leaves(self) -> int:
         return len(self.leaf_specs)
+
+    @property
+    def fingerprint(self) -> str:
+        """Stable digest of the gradient-tree structure this plan was
+        compiled for (``tree_fingerprint``): the plan cache's key and, in
+        structural form, the tuning artifact's."""
+        return tree_fingerprint(self.treedef, self.contrib_specs)
 
     @property
     def n_buckets(self) -> int:
@@ -1313,6 +1321,39 @@ def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
 
 _PLAN_CACHE: Dict[Any, ExchangePlan] = {}
 _PLAN_CACHE_MAX = 256      # specs include sparse row counts, which vary
+_CACHE_STATS = {"hits": 0, "misses": 0}
+
+_FINGERPRINT_VERSION = "fp1"
+
+
+def tree_fingerprint(treedef, contrib_specs, exact: bool = True) -> str:
+    """Stable hex digest of a gradient-tree structure: the treedef and
+    every contribution's shape and dtype.  It is the sha256 of a
+    canonical ``repr`` (not Python's salted ``hash``), so it is the same
+    across processes, and the treedef is rendered as ``jax.tree_util``
+    renders the same tree (``treedef_str``), so the digest equals the
+    reference package's for the same tree.
+
+    ``exact=False`` sets every sparse row count (which follows the
+    microbatch's token count) to 0: the structural fingerprint that keys
+    the tuning artifact, so one tuned config covers every batch size of a
+    model.  The plan cache keys on the exact digest, since plans bill
+    wire bytes by the row."""
+    if not exact:
+        contrib_specs = tuple(
+            tuple(dataclasses.replace(c, rows=0)
+                  if isinstance(c, SparseSpec) else c for c in contribs)
+            for contribs in contrib_specs)
+    payload = repr((_FINGERPRINT_VERSION, exact, treedef_str(treedef),
+                    contrib_specs))
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def fingerprint(grads, exact: bool = True) -> str:
+    """``tree_fingerprint`` of a gradient tree (tensors on any device,
+    ``meta`` included: only the structure matters)."""
+    leaves, treedef = tree_flatten(grads)
+    return tree_fingerprint(treedef, _contrib_specs(leaves), exact=exact)
 
 
 def _leaf_tensors(leaf):
@@ -1425,12 +1466,25 @@ def compile_plan(grads, config: ExchangeConfig) -> ExchangePlan:
     contributions matter, so ``meta`` tensors compile the same plan."""
     leaves, treedef = tree_flatten(grads)
     contrib_specs = _contrib_specs(leaves)
-    key = (treedef, contrib_specs, config)
+    key = (tree_fingerprint(treedef, contrib_specs), config)
     plan = _PLAN_CACHE.get(key)
-    if plan is None:
-        plan = _build_plan(treedef, contrib_specs, config,
-                           leaf_blocks=leaf_block_labels(grads))
-        if len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:       # FIFO bound
-            _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
-        _PLAN_CACHE[key] = plan
+    if plan is not None:
+        _CACHE_STATS["hits"] += 1
+        return plan
+    _CACHE_STATS["misses"] += 1
+    plan = _build_plan(treedef, contrib_specs, config,
+                       leaf_blocks=leaf_block_labels(grads))
+    if len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:       # FIFO bound
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+    _PLAN_CACHE[key] = plan
     return plan
+
+
+def plan_cache_info() -> Dict[str, int]:
+    """The plan cache's hits, misses and size since the last clear."""
+    return dict(_CACHE_STATS, size=len(_PLAN_CACHE))
+
+
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
+    _CACHE_STATS["hits"] = _CACHE_STATS["misses"] = 0

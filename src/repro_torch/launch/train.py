@@ -43,6 +43,12 @@ weights after training (on copies of the state) and writes
 ``D/trace.json``, a Chrome trace of the exchange's stages that
 ``scripts/trace_report_torch.py`` summarizes.
 
+Tuning: ``--tuned`` takes the exchange from the cached autotuner
+artifact for this (model, workers, ``--profile``) under ``--tune-cache``
+(written by ``repro_torch.launch.tune``) instead of the exchange flags;
+a miss warns on stderr, runs the analytic search, saves its winner and
+goes on.
+
 Example (4 cards):
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
     --arch transformer-big --dist horovod --grad-accum dense_reduce \
@@ -51,6 +57,7 @@ Example (4 cards):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -148,7 +155,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the runtime wire-byte counters) and write a "
                          "Chrome-trace JSON here; summarize with "
                          "scripts/trace_report_torch.py")
-    return ap.parse_args(argv)
+    ap.add_argument("--tuned", action="store_true",
+                    help="configure the exchange from the cached "
+                         "autotuner artifact for this (model, workers, "
+                         "--profile) instead of the exchange flags "
+                         "(write one with repro_torch.launch.tune); a "
+                         "cache miss warns and falls back to an analytic "
+                         "search")
+    ap.add_argument("--tune-cache", default=None,
+                    help="tuning artifact directory (default: "
+                         "experiments/tuning_torch)")
+    args = ap.parse_args(argv)
+    if args.tune_cache is None:
+        from repro_torch.tuning.search import DEFAULT_CACHE_DIR
+        args.tune_cache = DEFAULT_CACHE_DIR
+    return args
 
 
 def resolve_device(name: str) -> torch.device:
@@ -185,9 +206,14 @@ def init_distributed(device: torch.device) -> Tuple[int, int, bool]:
     return dist.get_rank(), dist.get_world_size(), True
 
 
-def build_optimizer(args, cfg, group) -> DistributedOptimizer:
-    base = adamw(noam_schedule(cfg.d_model, warmup_steps=args.warmup))
-    exchange = ExchangeConfig(
+def exchange_config(args, tuned: Optional[ExchangeConfig] = None
+                    ) -> ExchangeConfig:
+    """The run's ExchangeConfig: ``tuned`` (the ``--tuned`` artifact's
+    winner) when given, else the exchange flags; the densify and quantize
+    kernels always on (``use_kernel=True``)."""
+    if tuned is not None:
+        return dataclasses.replace(tuned, use_kernel=True)
+    return ExchangeConfig(
         sparse_as_dense=args.grad_accum == "dense_reduce",
         algorithm=args.algorithm,
         fusion_threshold=args.fusion_threshold,
@@ -196,7 +222,42 @@ def build_optimizer(args, cfg, group) -> DistributedOptimizer:
         error_feedback=args.error_feedback,
         overlap=args.overlap or False, zero1=args.zero1,
         param_codec=args.param_codec, use_kernel=True)
-    return DistributedOptimizer(base, exchange=exchange, group=group)
+
+
+def build_optimizer(args, cfg, group,
+                    tuned: Optional[ExchangeConfig] = None
+                    ) -> DistributedOptimizer:
+    base = adamw(noam_schedule(cfg.d_model, warmup_steps=args.warmup))
+    return DistributedOptimizer(base, exchange=exchange_config(args, tuned),
+                                group=group)
+
+
+def resolve_tuned_exchange(args, grads, workers: int, rank: int,
+                           log: Callable[[str], None] = print
+                           ) -> ExchangeConfig:
+    """``--tuned``: the winning ExchangeConfig of the cached artifact for
+    (``grads``' structure, ``workers``, ``--profile``).  On a miss, warn
+    on stderr and run the analytic search; rank 0 saves its winner, so
+    the next launch hits the cache.  The key ignores sparse row counts,
+    so the meta gradient tree of any batch size resolves it."""
+    from repro_torch.tuning import load_tuned_config, save_artifact
+    from repro_torch.tuning import search as run_search
+    doc = load_tuned_config(grads, workers, args.profile, args.tune_cache)
+    if doc is not None:
+        log(f"tuned exchange: {doc['winner_label']} "
+            f"(artifact {doc['path']})")
+        return doc["exchange_config"]
+    if rank == 0:
+        print(f"warning: no tuning artifact for (arch={args.arch}, "
+              f"P={workers}, profile={args.profile}) under "
+              f"{args.tune_cache} — run repro_torch.launch.tune; falling "
+              f"back to analytic search", file=sys.stderr)
+    res = run_search(grads, workers, profile=args.profile, trials=0)
+    if rank == 0:
+        path = save_artifact(res, args.tune_cache)
+        log(f"tuned exchange (analytic, cached -> {path}): "
+            f"{res.winner.label}")
+    return res.winner.config
 
 
 def pod_groups(rank: int, world: int):
@@ -302,25 +363,31 @@ def run(argv=None, log: Optional[Callable[[str], None]] = None
     if log is None:
         log = print if rank == 0 else (lambda s: None)
     try:
+        pipe = make_pipeline(cfg, batch_per_host=args.batch_per_worker * world,
+                             seq_len=args.seq_len, seed=args.seed,
+                             task=args.task)
+        meta = meta_worker_grads(args, model, pipe, sparse_embedding)
+        tuned = None
+        if args.tuned:
+            tuned = resolve_tuned_exchange(
+                args, meta, world if args.dist == "horovod" else 1, rank,
+                log)
         if args.dist == "horovod":
             shape = ""
-            if args.backend == "hierarchical":
+            # the pods follow the exchange the run takes, tuned or flagged
+            if exchange_config(args, tuned).backend == "hierarchical":
                 group = pod_groups(rank, world)
                 shape = f"2x{world // 2} pod/data, "
             log(f"horovod mode: {world} workers ({shape}"
                 f"{dist.get_backend()}), global batch "
                 f"{args.batch_per_worker * world}x{args.seq_len} tokens")
         params = model.init(seed=args.seed, device=device)
-        opt = build_optimizer(args, cfg, group)
+        opt = build_optimizer(args, cfg, group, tuned)
         step = make_train_step(model, opt, sparse_embedding=sparse_embedding)
-        pipe = make_pipeline(cfg, batch_per_host=args.batch_per_worker * world,
-                             seq_len=args.seq_len, seed=args.seed,
-                             task=args.task)
-        meta = meta_worker_grads(args, model, pipe, sparse_embedding)
         ex_state = opt.init_exchange_state(meta, device=device)
         ex_cfg = opt.exchange_config
         if ex_cfg.overlap or ex_cfg.codec_obj.stateful or ex_cfg.zero1 \
-                or ex_cfg.backend == "hierarchical":
+                or args.tuned or ex_cfg.backend == "hierarchical":
             print_exchange_schedule(args, opt, meta, world, log)
         # under zero1 the optimizer state is this rank's slice of the
         # Zero1State, laid out along the plan's bucket partition

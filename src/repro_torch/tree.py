@@ -49,6 +49,21 @@ def _unflatten(d, it):
     return {k: _unflatten(c, it) for k, c in zip(keys, children)}
 
 
+def treedef_str(treedef) -> str:
+    """The treedef as ``str(treedef)`` renders the same tree in
+    ``jax.tree_util`` (``"PyTreeDef({'a': *, 'b': {'c': *}})"``), so a
+    digest of it keys artifacts that both packages read."""
+    return f"PyTreeDef({_render(treedef)})"
+
+
+def _render(d) -> str:
+    if d == LEAF:
+        return LEAF
+    keys, children = d
+    return "{" + ", ".join(f"{k!r}: {_render(c)}"
+                           for k, c in zip(keys, children)) + "}"
+
+
 def tree_leaves_with_path(tree) -> List[Tuple[str, Any]]:
     """``(path, leaf)`` pairs in ``tree_flatten``'s order; the path is
     each key's ``repr`` in brackets, outermost first."""

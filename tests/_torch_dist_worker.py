@@ -4,9 +4,10 @@ Imported by the spawned processes of tests/test_torch_exchange.py
 (``run``), tests/test_torch_overlap.py (``run_overlap``),
 tests/test_torch_backend_world.py (``run_backends``),
 tests/test_torch_zero1_world.py (``run_zero1``),
-tests/test_torch_hot_swap.py (``run_broadcast``) and
-tests/test_torch_trace_world.py (``run_trace``); it imports torch and the
-port only.
+tests/test_torch_hot_swap.py (``run_broadcast``),
+tests/test_torch_trace_world.py (``run_trace``) and
+tests/test_torch_tuning_world.py (``run_tuning``); it imports torch and
+the port only.
 """
 import numpy as np
 import torch
@@ -599,5 +600,70 @@ def run_trace(rank: int, world: int, port: int, out_dir: str) -> None:
             r["unchanged_after_all"] = bitwise(args, before)
             results[name] = r
         torch.save(results, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+#: the launcher flags the tuning world test trains with, beside --tuned
+TUNING_TRAIN = ["--arch", "transformer-big", "--reduced", "--dist",
+                "horovod", "--steps", "2", "--log-every", "1",
+                "--batch-per-worker", "2", "--seq-len", "32", "--device",
+                "cpu"]
+
+
+def config_flags(cfg) -> list:
+    """The launcher flags that build ``cfg`` (an ExchangeConfig)."""
+    flags = ["--grad-accum",
+             "dense_reduce" if cfg.sparse_as_dense else "sparse_gather",
+             "--algorithm", cfg.algorithm, "--codec", cfg.codec,
+             "--backend", cfg.backend]
+    if cfg.fusion_threshold is not None:
+        flags += ["--fusion-threshold", str(cfg.fusion_threshold)]
+    if cfg.reduce_scatter:
+        flags.append("--reduce-scatter")
+    if cfg.overlap:
+        flags += ["--overlap", cfg.overlap]
+    return flags
+
+
+def run_tuning(rank: int, world: int, port: int, out_dir: str) -> None:
+    """The measured search on the reduced transformer-big in the world
+    (every rank's table and winner), then ``launch.tune`` (analytic) into
+    ``out_dir/cache`` and ``launch.train --tuned`` from it beside the
+    same config given by flags: the log, stderr and every step's loss and
+    final parameters of both runs."""
+    import contextlib
+    import io
+    from repro_torch.launch import train, tune
+    from repro_torch.tuning import config_from_dict, search
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        _, grads, model, params, batch = tune.audit_grads(
+            "transformer-big", True, 2, 32, torch.device("cpu"))
+        res = search(grads, world, profile="ethernet", trials=2, top_k=6,
+                     model=model, params=params, batch=batch)
+        out = {"head": [(c.label, c.measured_us, c.error)
+                        for c in res.candidates[:6]],
+               "winner": res.winner.label}
+        cache = f"{out_dir}/cache"
+        tuned = tune.run_tune(n_workers=world, reduced=True, trials=0,
+                              cache_dir=cache, device="cpu")
+        out["tune_winner"] = tuned["winner"]
+        runs = {}
+        for tag, extra in (("tuned", ["--tuned", "--tune-cache", cache]),
+                           ("flags", None)):
+            if extra is None:
+                extra = config_flags(config_from_dict(
+                    tuned["winner_config"]))
+            lines, err = [], io.StringIO()
+            with contextlib.redirect_stderr(err):
+                result = train.run(TUNING_TRAIN + extra, log=lines.append)
+            runs[tag] = {"log": lines, "stderr": err.getvalue(),
+                         "losses": [h["loss"] for h in result["history"]],
+                         "params": tree_flatten(result["params"])[0]}
+        out["runs"] = runs
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -2,7 +2,9 @@
 
 A fresh interpreter imports every module of ``repro_torch`` and must end
 with no ``jax``, ``jaxlib`` or ``repro`` module loaded; a static scan of
-the port's sources and ``chip_smoke.py`` finds no such import.
+the port's sources and ``chip_smoke.py`` finds no such import, nor does
+one of the port's examples (``examples/*_torch.py``) and scripts (every
+script but the reference's three).
 """
 import ast
 import json
@@ -18,6 +20,12 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+#: the scripts that belong to the reference package (they import it)
+REFERENCE_SCRIPTS = ("ef_smoke.py", "report.py", "trace_report.py")
+PORT_ENTRY_POINTS = sorted(
+    [str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("*_torch.py")]
+    + [str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("*.py")
+       if p.name not in REFERENCE_SCRIPTS])
 
 
 def _modules():
@@ -48,6 +56,24 @@ def test_importing_every_module_loads_no_jax_or_reference():
                                         list(PORT.rglob("*.py"))
                                         + [ROOT / "chip_smoke.py"]))
 def test_no_jax_or_reference_import_in_source(path):
+    _assert_no_forbidden_import(path)
+
+
+@pytest.mark.parametrize("path", PORT_ENTRY_POINTS)
+def test_no_jax_or_reference_import_in_examples_and_scripts(path):
+    _assert_no_forbidden_import(path)
+
+
+def test_entry_point_scan_covers_the_examples_and_scripts():
+    assert {"examples/quickstart_torch.py", "examples/train_nmt_torch.py",
+            "examples/scaling_comparison_torch.py",
+            "examples/serve_batch_torch.py",
+            "examples/continuous_serving_torch.py",
+            "scripts/trace_report_torch.py", "scripts/profile_torch_step.py",
+            "scripts/profile_torch_serve.py"} <= set(PORT_ENTRY_POINTS)
+
+
+def _assert_no_forbidden_import(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

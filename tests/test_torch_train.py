@@ -269,4 +269,4 @@ def test_main_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--reduced", "--steps", "1"])
     with pytest.raises(SystemExit):
-        train.main(["--reduced", "--tuned", "--device", "cpu"])
+        train.main(["--reduced", "--no-such-flag", "--device", "cpu"])
