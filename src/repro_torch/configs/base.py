@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +87,13 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run long_500k? (SSM/hybrid natively; attention
+        archs through a sliding window.)"""
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
+
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -135,3 +142,27 @@ def get_config(arch_id: str) -> ArchConfig:
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's assigned ones)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -7,7 +7,8 @@
   get_codec / ExchangeState  wire codecs and their per-bucket state
   get_backend             collective backends (flat, hierarchical, ringsim)
 """
-from repro_torch.core.indexed_slices import IndexedSlices, concat_slices
+from repro_torch.core.indexed_slices import (IndexedSlices, concat_slices,
+                                             is_indexed_slices)
 from repro_torch.core.accumulation import (accumulate_gradients, densify,
                                            dense_to_slices,
                                            accumulated_nbytes)

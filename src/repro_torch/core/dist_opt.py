@@ -7,6 +7,13 @@ statically compiled ``ExchangePlan`` per gradient-tree structure
     opt = DistributedOptimizer(base, exchange=ExchangeConfig(
         sparse_as_dense=True, use_kernel=True), group=dist.group.WORLD)
 
+The config may also come as the second positional argument.  The
+historical flags (``sparse_as_dense=``, ``reduce_scatter=``,
+``wire_dtype=``, ``use_kernel=``, ``fusion_threshold=``, ...) are still
+accepted, warn with a ``DeprecationWarning`` and forward into an
+equivalent ``ExchangeConfig``, so old- and new-style construction share
+one cached plan.
+
 ``group`` is a process group, a tuple of process groups (one per level
 of a hierarchical backend, outermost first:
 ``(cross_pod_group, within_pod_group)``) or ``None`` for the local path
@@ -26,12 +33,19 @@ accounting (``ExchangeStats``) with the cost model's prediction.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Union
 
 from repro_torch.core import comm, exchange
 from repro_torch.core.codecs import ExchangeState
 from repro_torch.core.exchange import ExchangeConfig
 from repro_torch.optim.base import Optimizer
+
+#: ExchangeConfig fields accepted as deprecated DistributedOptimizer
+#: keywords (the flags from before ExchangeConfig)
+_DEPRECATED_FLAGS = ("sparse_as_dense", "algorithm", "fusion_threshold",
+                     "use_kernel", "reduce_scatter", "wire_dtype",
+                     "hierarchical", "hierarchy_levels")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,13 +115,31 @@ class DistributedOptimizer:
     """Wrapper around an Optimizer adding the distributed exchange."""
 
     def __init__(self, base: Optimizer,
+                 exchange_config: Optional[ExchangeConfig] = None, *,
                  exchange: Optional[ExchangeConfig] = None,
-                 group: comm.Group = None, average: bool = True):
+                 group: comm.Group = None, average: bool = True,
+                 **deprecated):
         self.base = base
         self.group = group
         self.average = average
-        self._exchange_config = (exchange if exchange is not None
-                                 else ExchangeConfig())
+        cfg = exchange if exchange is not None else exchange_config
+        unknown = set(deprecated) - set(_DEPRECATED_FLAGS)
+        if unknown:
+            raise TypeError(f"DistributedOptimizer got unexpected keyword "
+                            f"arguments {sorted(unknown)}")
+        flags = {k: v for k, v in deprecated.items() if v is not None}
+        if flags:
+            if cfg is not None:
+                raise TypeError(
+                    f"pass either exchange=ExchangeConfig(...) or the "
+                    f"deprecated flags {sorted(flags)}, not both")
+            warnings.warn(
+                f"DistributedOptimizer({', '.join(sorted(flags))}=...) "
+                f"flags are deprecated; pass "
+                f"exchange=ExchangeConfig(...) instead",
+                DeprecationWarning, stacklevel=2)
+            cfg = ExchangeConfig(**flags)
+        self._exchange_config = cfg if cfg is not None else ExchangeConfig()
 
     def init(self, params):
         return self.base.init(params)
@@ -118,6 +150,21 @@ class DistributedOptimizer:
     @property
     def exchange_config(self) -> ExchangeConfig:
         return self._exchange_config
+
+    @property
+    def stateful(self) -> bool:
+        """True when the codec carries per-bucket memory, so an
+        ExchangeState must be threaded through the exchange."""
+        return self._exchange_config.codec_obj.stateful
+
+    # read-throughs for code written against the deprecated flags
+    @property
+    def sparse_as_dense(self) -> bool:
+        return self._exchange_config.sparse_as_dense
+
+    @property
+    def algorithm(self) -> str:
+        return self._exchange_config.algorithm
 
     def init_exchange_state(self, grads, device=None) -> ExchangeState:
         """Initial codec state for this gradient-tree structure: zero
@@ -130,6 +177,12 @@ class DistributedOptimizer:
     def plan(self, grads) -> exchange.ExchangePlan:
         """The (cached) static schedule for this gradient tree."""
         return exchange.compile_plan(grads, self._exchange_config)
+
+    def accumulate(self, grads):
+        """Step 1: per-variable local accumulation (Alg. 1 / Alg. 2),
+        densified at once (the exchange itself defers densification
+        into packing)."""
+        return self.plan(grads).accumulate_tree(grads)
 
     def exchange(self, grads, state: Optional[ExchangeState] = None):
         """Accumulate, exchange across the group, densify: returns

@@ -669,6 +669,17 @@ class ExchangePlan:
             total += math.prod(shape) * comm.dtype_bytes(s.dtype)
         return total
 
+    @property
+    def sparse_bytes_per_worker(self) -> int:
+        """Per-worker IndexedSlices bytes entering the gather collectives
+        (the paper model's S term)."""
+        total = 0
+        for i in self.gather_leaf_ids:
+            s = self.leaf_specs[i]
+            total += s.rows * (s.row_elems * comm.dtype_bytes(s.dtype)
+                               + comm.dtype_bytes(s.index_dtype))
+        return total
+
     def describe(self) -> str:
         """Human-readable bucket/collective table naming the active codec
         and backend per bucket (the reference's, with the port's backend
@@ -1022,6 +1033,23 @@ class ExchangePlan:
             else:
                 self._finish_gather(stage, inflight, out, inv_scale, p)
             _tap_first("unpack", stage, out)
+
+    def accumulate(self, grads) -> List[Any]:
+        """Step 1 at run time: every leaf accumulated to the planned
+        representation (dense leaves with sparse contributions come back
+        ``_Pending``, densified later inside pack)."""
+        return [_accumulate_leaf(leaf, spec, self.config)
+                for leaf, spec in zip(self._flatten_checked(grads),
+                                      self.leaf_specs)]
+
+    def accumulate_tree(self, grads):
+        """Step 1 as a public tree: dense-destined leaves densified (the
+        densify kernel when ``config.use_kernel``), gather-destined
+        leaves still IndexedSlices: the paper's per-variable
+        accumulation before any collective."""
+        out = [_materialise(x, self.config) if isinstance(x, _Pending)
+               else x for x in self.accumulate(grads)]
+        return tree_unflatten(self.treedef, out)
 
     def _flatten_checked(self, grads) -> List[Any]:
         leaves, treedef = tree_flatten(grads)

@@ -4,7 +4,9 @@ The torch counterpart of ``repro.core.fusion``: first-fit-decreasing
 bucketing of the flattened gradient tree into fusion buffers of at most
 ``threshold_bytes`` (the paper's runs use 128 MiB), one collective per
 buffer, exact unpacking.  The plan depends on shapes and dtypes only, so
-``meta`` tensors plan as well as real ones.
+``meta`` tensors plan as well as real ones.  ``fused_all_reduce`` is
+Horovod's tensor fusion on its own (one allreduce per fusion buffer);
+the exchange plan buckets with the same ``plan_fusion``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core.comm import dtype_name, torch_dtype
 from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -97,3 +100,20 @@ def unpack(buffers: Sequence[torch.Tensor], plan: FusionPlan):
     if plan.treedef is None:
         return leaves
     return tree_unflatten(plan.treedef, leaves)
+
+
+def fused_all_reduce(grads, group: comm.Group,
+                     threshold_bytes: int = DEFAULT_FUSION_THRESHOLD,
+                     average: bool = True):
+    """One allreduce per fusion buffer instead of one per gradient
+    tensor: every buffer's allreduce is launched before the first is
+    waited for.  ``group=None`` returns the leaves unchanged."""
+    plan = plan_fusion(grads, threshold_bytes)
+    inflight = [comm.all_reduce_dense(b, group, average=average)
+                for b in pack(grads, plan)]
+    return unpack([comm.wait(x) for x in inflight], plan)
+
+
+def collective_launches(grads, threshold_bytes: int) -> int:
+    """Collectives a fused allreduce issues (for the latency model)."""
+    return plan_fusion(grads, threshold_bytes).n_buckets

@@ -29,6 +29,10 @@ class IndexedSlices:
     dense_shape: Tuple[int, ...]
 
     @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
     def nbytes(self) -> int:
         """Wire size of this representation (indices + values)."""
         return int(self.indices.numel() * self.indices.element_size()
@@ -42,9 +46,21 @@ class IndexedSlices:
                             device=self.values.device)
         return zeros.index_add_(0, self.indices.long(), self.values)
 
+    @classmethod
+    def from_dense(cls, dense: torch.Tensor,
+                   indices: torch.Tensor) -> "IndexedSlices":
+        """The rows ``dense[indices]`` as IndexedSlices of ``dense``'s
+        shape (the row gather of ``tf.gather``)."""
+        return cls(indices=indices, values=dense[indices.long()],
+                   dense_shape=tuple(dense.shape))
+
     def __repr__(self):
         return (f"IndexedSlices(n={self.indices.shape[0]}, "
                 f"dense_shape={self.dense_shape}, dtype={self.values.dtype})")
+
+
+def is_indexed_slices(x) -> bool:
+    return isinstance(x, IndexedSlices)
 
 
 def concat_slices(slices: Tuple[IndexedSlices, ...]) -> IndexedSlices:

@@ -74,7 +74,7 @@ from repro_torch.models import build_model
 from repro_torch.optim import adamw, noam_schedule
 from repro_torch.telemetry.metrics import MetricsLogger, StepRecorder
 from repro_torch.training import Trainer, TrainerConfig, make_train_step
-from repro_torch.training.gradients import wait_free_contribution_structs
+from repro_torch.training.gradients import abstract_grad_contributions
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -327,16 +327,16 @@ def capture_training_trace(args, opt, grads, step_fn, trainer, result,
 def meta_worker_grads(args, model, pipe, sparse_embedding: bool):
     """One worker's gradient-contribution tree on ``meta`` tensors (no
     memory, no compute): the structure the ExchangePlan and its
-    ExchangeState are keyed on, the one ``grad_contributions`` returns,
-    built from the parameters' shapes and the batch's token count
-    without a forward or backward pass (on meta tensors those still cost
-    the host every eager operation of a step, a recurrence's included)."""
+    ExchangeState are keyed on, from
+    ``gradients.abstract_grad_contributions`` (no forward or backward
+    pass: on meta tensors those still cost the host every eager
+    operation of a step, a recurrence's included)."""
     meta = torch.device("meta")
     batch = {k: torch.empty((args.batch_per_worker,) + v.shape[1:],
                             dtype=torch.from_numpy(v[:0]).dtype,
                             device=meta)
              for k, v in pipe.batch_at(0).items()}
-    return wait_free_contribution_structs(
+    return abstract_grad_contributions(
         model, model.init(device=meta), batch,
         sparse_embedding=sparse_embedding)
 

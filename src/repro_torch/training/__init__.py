@@ -1,4 +1,5 @@
-from repro_torch.training.gradients import (grad_contributions,
+from repro_torch.training.gradients import (abstract_grad_contributions,
+                                            grad_contributions,
                                             wait_free_grad_exchange)
 from repro_torch.training.microbatch import (LossScaler, ScalerState,
                                              accumulate_microbatches,

@@ -71,6 +71,23 @@ def grad_contributions(model, params, batch: Dict[str, torch.Tensor],
     return g_params, loss.detach(), metrics
 
 
+def abstract_grad_contributions(model, params, batch,
+                                sparse_embedding: bool = False,
+                                **loss_kw):
+    """One worker's gradient-contribution tree on ``meta`` tensors, with
+    no forward and no backward pass: the structure ``grad_contributions``
+    returns, which ``compile_plan`` and
+    ``DistributedOptimizer.init_exchange_state`` are keyed on.  The one
+    place the launcher, the scripts and the tests take it from, so the
+    convention cannot drift between them.  ``params`` and ``batch`` may
+    be concrete or ``meta``: only their shapes and dtypes are read.
+    ``loss_kw`` is accepted for the reference's signature; no loss
+    option changes the tree's shapes."""
+    del loss_kw
+    return wait_free_contribution_structs(
+        model, params, batch, sparse_embedding=sparse_embedding)
+
+
 # -- wait-free backprop (overlap="backward") ---------------------------------
 
 def _as_list(x) -> list:

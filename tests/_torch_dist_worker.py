@@ -5,9 +5,10 @@ Imported by the spawned processes of tests/test_torch_exchange.py
 tests/test_torch_backend_world.py (``run_backends``),
 tests/test_torch_zero1_world.py (``run_zero1``),
 tests/test_torch_hot_swap.py (``run_broadcast``),
-tests/test_torch_trace_world.py (``run_trace``) and
-tests/test_torch_tuning_world.py (``run_tuning``); it imports torch and
-the port only.
+tests/test_torch_trace_world.py (``run_trace``),
+tests/test_torch_tuning_world.py (``run_tuning``) and
+tests/test_torch_library_world.py (``run_library``); it imports torch
+and the port only.
 """
 import numpy as np
 import torch
@@ -665,5 +666,68 @@ def run_tuning(rank: int, world: int, port: int, out_dir: str) -> None:
                          "params": tree_flatten(result["params"])[0]}
         out["runs"] = runs
         torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+#: rows, row width and vocabulary of ``library_slices``
+LIB_ROWS, LIB_D, LIB_VOCAB = 5, 4, 16
+#: fusion thresholds of ``run_library``'s fused allreduces (bytes)
+LIB_THRESHOLDS = (256, 1 << 20)
+
+
+def library_slices(rank: int, dtype=torch.float32) -> IndexedSlices:
+    """Rank ``rank``'s IndexedSlices: ids drawn with duplicates."""
+    rng = np.random.default_rng(300 + rank)
+    return IndexedSlices(
+        torch.from_numpy(rng.integers(0, LIB_VOCAB, LIB_ROWS).astype(
+            np.int32)),
+        torch.from_numpy(rng.standard_normal((LIB_ROWS, LIB_D)).astype(
+            np.float32)).to(dtype), (LIB_VOCAB, LIB_D))
+
+
+def library_tree(rank: int) -> dict:
+    """Rank ``rank``'s dense tree: leaves of 7 to 2048 f32 elements."""
+    rng = np.random.default_rng(400 + rank)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    return {"a": t(32, 16), "b": t(7), "c": {"d": t(64, 32), "e": t(3, 5)}}
+
+
+def run_library(rank: int, world: int, port: int, out_dir: str) -> None:
+    """``comm.all_gather_slices`` over the world and over a two-level
+    tuple of it, each under a ``WireRecorder``, with its collective
+    calls; ``fusion.fused_all_reduce`` (mean and sum) at
+    ``LIB_THRESHOLDS`` with its allreduce calls."""
+    from repro_torch.core import comm, fusion
+    from repro_torch.telemetry import hooks
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        g = dist.group.WORLD
+        results = {}
+        for name, group in (("flat", g), ("two_level", (g, g))):
+            for dtype in (torch.float32, torch.bfloat16):
+                rec = hooks.WireRecorder()
+                hooks.install_wire_recorder(rec)
+                comm.reset_calls()
+                try:
+                    with hooks.stage_scope("gather"):
+                        out = comm.all_gather_slices(
+                            library_slices(rank, dtype), group)
+                finally:
+                    hooks.clear_wire_recorder()
+                results[f"{name}/{dtype}"] = {
+                    "indices": out.indices, "values": out.values,
+                    "dense_shape": out.dense_shape, "wire": rec.as_dict(),
+                    "calls": comm.calls()}
+        for thr in LIB_THRESHOLDS:
+            comm.reset_calls()
+            mean = fusion.fused_all_reduce(library_tree(rank), g, thr)
+            total = fusion.fused_all_reduce(library_tree(rank), g, thr,
+                                            average=False)
+            results[f"fused/{thr}"] = {"mean": mean, "sum": total,
+                                       "calls": comm.calls()}
+        torch.save(results, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()

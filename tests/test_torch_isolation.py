@@ -70,7 +70,8 @@ def test_entry_point_scan_covers_the_examples_and_scripts():
             "examples/serve_batch_torch.py",
             "examples/continuous_serving_torch.py",
             "scripts/trace_report_torch.py", "scripts/profile_torch_step.py",
-            "scripts/profile_torch_serve.py"} <= set(PORT_ENTRY_POINTS)
+            "scripts/profile_torch_serve.py", "scripts/ef_smoke_torch.py",
+            "scripts/report_torch.py"} <= set(PORT_ENTRY_POINTS)
 
 
 def _assert_no_forbidden_import(path):
