@@ -174,7 +174,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                states through the kernel, 6 launches a step; every step's
                logits held against the plain path teacher-forced on the
                same tokens;
-  8. serve   — ``ServeEngine.generate`` on 8 prompts of 64 tokens, 32 new
+  8. serve   — ``ServeEngine.generate`` on 8 prompts of 64 tokens, 16 new
                tokens (no encoder states, so no launch); shape and EOS
                masking;
   9. hybrid  — full-width zamba2-7b in bf16 (weights from seed 0 drawn
@@ -186,7 +186,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                attention kernel);
                8 requests of a 16-token prefix and 16 greedy decode steps,
                and ``ServeEngine.generate`` on 8 x 16-token prompts with
-               16 new tokens (no launch in either); then the weights cast
+               8 new tokens (no launch in either); then the weights cast
                to f32 and the logits of the kernel path held against the
                plain path on 4096 tokens at ``PATH_TOL`` (in bf16 the
                difference is reported: 94 random residual blocks carry a
@@ -280,7 +280,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                (8 requests, 16 greedy steps; f32 decode against the f32
                forward at 2e-4); ``xlstm_serve``; ``xlstm_f32`` (card
                against CPU, 256 tokens); ``xlstm_path`` (the launcher at
-               2 x 256 tokens a step, 2 steps of dense_reduce and 1 of
+               2 x 256 tokens a step, 1 step of dense_reduce and 1 of
                sparse_gather, densify once a step at 50304 x 768); and
                ``small_xlstm`` (reduced, card against CPU, forward,
                decode and 2 launcher steps).
@@ -353,9 +353,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                quickstart's two strategies the same model within 1e-4.
  17. ef_smoke — ``scripts/ef_smoke_torch.py``: its ``main`` at the
                reference's reduced transformer-big, ``--workers 1 --steps
-               40`` (a world of 1 over NCCL) must print PASS and exit 0;
+               30`` (a world of 1 over NCCL) must print PASS and exit 0;
                then ``final_loss`` trains full-width transformer-big (d
-               1024, tied 33708-row vocabulary, 6 + 6 layers) 40 steps
+               1024, tied 33708-row vocabulary, 6 + 6 layers) 30 steps
                with each of the three wires: finite losses; the tail
                means, gaps, the contract's verdict and whether the
                identity run's tail fell below its first logged loss
@@ -368,6 +368,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
                plan.  Then ``scripts/report_torch.py`` on the telemetry
                phase's JSONL and trace: exit 0 and ``wire exact vs plan:
                True``.
+ 18. dryrun  — the dry run (``launch/dryrun.py``) and its FLOP counter
+               (``launch/flops.py``) on full-width transformer-big: the
+               dry run's argument bytes of the train step at mesh (1, 1)
+               and 8 x 256 tokens against the card memory that the
+               launcher's init of params, AdamW state and batch takes
+               (within 512 B a tensor); one launcher training step
+               counted on the card (densify launched once, billed through
+               ``record_work``) against the same step on meta tensors in a
+               fake world of 1, and the 32768-token prefill (12 "sm90"
+               launches, each billed) against the chunked route on meta:
+               FLOPs equal; each one's counted TFLOP/s and ``model_flops``
+               TFLOP/s over the median of 3 timed runs.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -710,7 +722,8 @@ def densify_timing(D, idx, v, vb, width) -> dict:
     nbytes = vb * width * itemsize + n * width * itemsize + 4 * n
     bound_ms = max(nbytes / HBM_BYTES_PER_S, n * width / F32_FLOPS) * 1e3
     idx64, v32 = idx.long(), v.float()
-    # Two measures, kernel, plain, plain, kernel, best of two turns: the
+    # Two measures, kernel, plain, library, library, plain, kernel, best
+    # of two turns (25 calls each): the
     # device time of a call's kernels (the profiler's sum; ``ms`` in the
     # kernels line), and CUDA events around back-to-back calls, which
     # also count the gaps the host leaves (the Python, ctypes and
@@ -723,9 +736,9 @@ def densify_timing(D, idx, v, vb, width) -> dict:
     dev_t, events_t = {}, {}
     for order in ("kernel", "plain", "library", "library", "plain",
                   "kernel"):
-        t = device_ms(fns[order], 50)
+        t = device_ms(fns[order], 25)
         dev_t[order] = min(dev_t.get(order, t), t)
-        t = cuda_ms(fns[order], 50)
+        t = cuda_ms(fns[order], 25)
         events_t[order] = min(events_t.get(order, t), t)
     ms, plain_ms, library_ms = dev_t["kernel"], dev_t["plain"], \
         dev_t["library"]
@@ -2860,7 +2873,7 @@ PATH_TOL = dict(max_abs=0.25, rel_l2=2e-2)
 PREFILL_LEN, N_ENC = 32768, 256
 VLM_PATCHES = 256                  # internvl2-1b's vision prefix
 TRANSLATE_B, TRANSLATE_PREFIX, TRANSLATE_NEW = 8, 16, 32
-SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 64, 16
 SHORT_PROMPT = 16          # dense_serve, mla_serve, xlstm_serve
 
 
@@ -3051,12 +3064,12 @@ def phase_attn_kernel(FA) -> dict:
         if variant == "sm90":
             runs["mma"] = dict(kw, _override="mma")
         times = {}
-        for order in ("kernel", "mma", "plain", "plain", "mma", "kernel"):
+        for order in ("kernel", "mma", "plain", "mma", "kernel"):
             if order not in runs:
                 continue
             if order == "plain":
                 t = cuda_ms_cold(lambda: FA.flash_attention_plain(
-                    q, k, v, **kw), 20 if one_row else 2)
+                    q, k, v, **kw), 20 if one_row else 1)
             else:
                 t = cuda_ms_cold(lambda: FA.flash_attention_kernel(
                     q, k, v, **runs[order]), 50 if one_row else 10)
@@ -3213,7 +3226,7 @@ SSD_MAIN = (1, PREFILL_LEN, 112, 64, 64, 256)    # b, s, h, p, n, chunk
 SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 CHECK_LEN = 4096         # tokens of the f32 checks and the hybrid bf16 report
 HYBRID_B, HYBRID_PREFIX, HYBRID_NEW = 8, 16, 16
-HSERVE_B, HSERVE_PROMPT, HSERVE_NEW = 8, 16, 16
+HSERVE_B, HSERVE_PROMPT, HSERVE_NEW = 8, 16, 8
 
 
 def ssd_bound(b, s, h, p, n, chunk, in_bytes):
@@ -3589,7 +3602,7 @@ def phase_hybrid_decode(model, params, K, FA) -> dict:
 
 
 def phase_hybrid_serve(model, params, K, FA) -> dict:
-    """``ServeEngine.generate`` on 8 prompts of 16 tokens, 16 new tokens,
+    """``ServeEngine.generate`` on 8 prompts of 16 tokens, 8 new tokens,
     unchanged on the hybrid cache: no kernel launch; shape and EOS
     masking asserted."""
     import numpy as np
@@ -3883,7 +3896,7 @@ def phase_serve(model, params, FA, tag="serve",
                 prompt=SERVE_PROMPT) -> dict:
     """``ServeEngine.generate`` on 8 prompts of ``prompt`` tokens (64, or
     ``SHORT_PROMPT`` where the sequential prefill of a large model would
-    take the script's time), 32 new tokens: no encoder states, so no
+    take the script's time), 16 new tokens: no encoder states, so no
     kernel launch (the reference's engine passes none); output shape and
     EOS masking asserted."""
     import numpy as np
@@ -5592,7 +5605,7 @@ def phase_examples(D, Q, comm) -> dict:
 
 #: steps of every ef_smoke run: the reference docstring's example (its
 #: default of 60 takes ~31 s of the phase on the H100)
-EF_SMOKE_STEPS = 40
+EF_SMOKE_STEPS = 30
 EF_SMOKE_TOLERANCE = 0.15          # the reference script's, in nats
 
 
@@ -5700,6 +5713,219 @@ def phase_ef_smoke(train, D, Q, comm) -> dict:
     return totals
 
 
+DRYRUN_RUNS = 3                    # timed runs of each counted step
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def requested_bytes() -> int:
+    """The bytes the live tensors asked the caching allocator for."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def allocator_slack(tensors) -> int:
+    """How far ``memory_allocated`` may exceed the tensors' bytes: each
+    allocation is rounded up to 512 B, and the caching allocator hands a
+    cached block out whole when the rest would be under 512 B (blocks of
+    1 MiB and less) or under 1 MiB (larger blocks)."""
+    return sum(1024 if t.numel() * t.element_size() <= 1 << 20
+               else 512 + (1 << 20) for t in tensors)
+
+
+def phase_dryrun(train, D, FA) -> dict:
+    """The dry run (``launch/dryrun.py``) and its FLOP counter held to the
+    card, on full-width transformer-big:
+
+      (a) ``analyse``'s argument bytes of the dry run's train step at the
+          smoke's layout (mesh (1, 1), 8 x 256 tokens) against the memory
+          the launcher's own init of the params, AdamW state and batch
+          takes on the card: the bytes its tensors request within 512 B
+          a tensor, and the growth of ``memory_allocated`` within
+          ``allocator_slack``;
+      (b) one launcher training step (dense_reduce, a world of 1 over
+          NCCL) counted on the card, densify launched once and billed
+          through ``record_work``, against the same step on meta tensors
+          in a fake world of 1: FLOPs and bytes equal;
+      (c) the 32768-token prefill step counted on the card (12 "sm90"
+          launches, each billed) against the chunked route on meta:
+          FLOPs equal;
+      (d) the counted FLOPs and ``model_flops`` (6·N·D, 2·N·D) over the
+          median ms of ``DRYRUN_RUNS`` timed runs, as TFLOP/s.
+
+    Returns the phase's densify and flash launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import dryrun, flops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import build_model
+    from repro_torch.telemetry import hooks
+    from repro_torch.training import make_train_step
+    from repro_torch.tree import tree_flatten
+    arch, meta = "transformer-big", torch.device("meta")
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    argv = FULL_WIDTH + ["--grad-accum", "dense_reduce", "--steps", "1"]
+    args, _, batch_at = zero1_setup(train, argv)
+    shape = InputShape("smoke_train", args.seq_len, args.batch_per_worker,
+                       "train")
+    pipe = make_pipeline(cfg, args.batch_per_worker, args.seq_len,
+                         seed=args.seed)
+    host_batch = pipe.batch_at(0)
+    grads_m = train.meta_worker_grads(args, model, pipe, True)
+
+    def meta_batch(b):
+        return {k: torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype,
+                               device=meta) for k, v in b.items()}
+
+    def billed_calls(fn):
+        """``fn()`` under a FlopCounter, with the kernels' billing calls
+        counted."""
+        calls, real = [], hooks.record_work
+        hooks.record_work = lambda *w: (calls.append(w), real(*w))[1]
+        try:
+            with flops.FlopCounter() as c:
+                out = fn()
+                torch.cuda.synchronize()
+        finally:
+            hooks.record_work = real
+        return out, c.result(), len(calls)
+
+    # (a) the dry run's argument bytes against the card's
+    step_dry, info = dryrun.build_step(
+        arch, shape, False,
+        mesh_override=mesh_lib.make_mesh((1, 1), ("data", "model")))
+    dry = dryrun.analyse(step_dry, info, 1)
+    del step_dry
+    # (b), meta side: the launcher's step in a fake world of 1
+    with dryrun.fake_world(1):
+        opt_m = train.build_optimizer(args, cfg, dist.group.WORLD)
+        params_m = model.init(device=meta)
+        meta_train = flops.count_fn_flops(
+            make_train_step(model, opt_m, sparse_embedding=True), params_m,
+            opt_m.init(params_m), opt_m.init_exchange_state(grads_m,
+                                                            device=meta),
+            meta_batch(host_batch))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    base_req = requested_bytes()
+    created = _world_of_one(train)
+    D.densify_kernel.launches = 0
+    FA.reset_launches()
+    try:
+        params = model.init(seed=args.seed, device=args.device)
+        opt = train.build_optimizer(args, cfg, dist.group.WORLD)
+        opt_state = opt.init(params)
+        # contiguous, as the meta batch (a copy to the card is already)
+        batch = {k: v.contiguous() for k, v in batch_at(0).items()}
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        requested = requested_bytes() - base_req
+        tensors = tree_flatten(params)[0] + tree_flatten(
+            opt_state._asdict())[0] + list(batch.values())
+        n_tensors = len(tensors)
+        arg_bytes = dry["memory"]["argument_bytes"]
+        if not (0 <= requested - arg_bytes <= 512 * n_tensors
+                and 0 <= grown - arg_bytes <= allocator_slack(tensors)):
+            fail(f"dryrun: argument_bytes {arg_bytes} but the launcher's "
+                 f"init requested {requested} B and was allocated {grown} "
+                 f"B in {n_tensors} tensors (slack "
+                 f"{allocator_slack(tensors)} B)")
+        # (b), card side
+        step = make_train_step(model, opt, sparse_embedding=True)
+        ex_state = opt.init_exchange_state(grads_m, device=args.device)
+        _, card_train, train_billed = billed_calls(
+            lambda: step(params, opt_state, ex_state, batch))
+        if D.densify_kernel.launches != 1 or train_billed != 1:
+            fail(f"dryrun: the counted step launched densify "
+                 f"{D.densify_kernel.launches} times, billed "
+                 f"{train_billed} launches (want 1 and 1)")
+        if card_train != meta_train:
+            fail(f"dryrun: the card's step counts {card_train}, the same "
+                 f"step on meta {meta_train}")
+        train_ms = [timed(lambda: step(params, opt_state, ex_state,
+                                       batch))[1]
+                    for _ in range(DRYRUN_RUNS)]
+    finally:
+        if created:
+            dist.destroy_process_group()
+    del params, opt_state, batch, ex_state
+    torch.cuda.empty_cache()
+
+    # (c) the prefill step: kernel route on the card, chunked on meta
+    host = {k: v for k, v in make_pipeline(cfg, 1, PREFILL_LEN)
+            .batch_at(0).items() if k != "labels"}
+
+    def prefill(p, b, impl):
+        h = model.forward(p, b, attn_impl=impl)
+        return model.head(p, h[:, -1:])
+    params = model.init(seed=0, device=args.device)
+    pbatch = {k: torch.from_numpy(v).to(args.device).contiguous()
+              for k, v in host.items()}
+    want = 2 * cfg.n_layers
+    with torch.no_grad():
+        meta_prefill = flops.count_fn_flops(prefill, model.init(device=meta),
+                                            meta_batch(host), "chunked")
+        prefill(params, pbatch, "kernel")                 # warm-up
+        before = dict(FA.flash_attention_kernel.launches_by_variant)
+        _, card_prefill, prefill_billed = billed_calls(
+            lambda: prefill(params, pbatch, "kernel"))
+        sm90 = FA.flash_attention_kernel.launches_by_variant["sm90"] \
+            - before["sm90"]
+        if sm90 != want or prefill_billed != want:
+            fail(f"dryrun: the counted prefill made {sm90} sm90 launches, "
+                 f"billed {prefill_billed} (want {want} each)")
+        if card_prefill["flops"] != meta_prefill["flops"] or \
+                card_prefill["product_flops"] != \
+                meta_prefill["product_flops"]:
+            fail(f"dryrun: the card's prefill counts {card_prefill}, the "
+                 f"chunked route on meta {meta_prefill}")
+        prefill_ms = [timed(lambda: prefill(params, pbatch, "kernel"))[1]
+                      for _ in range(DRYRUN_RUNS)]
+    del params, pbatch
+    torch.cuda.empty_cache()
+
+    # (d) rates
+    n_active = dryrun.param_counts(cfg)[1]
+    lines = {}
+    for tag, counted, ms, model_f in (
+            ("train_step", card_train, train_ms,
+             6 * n_active * shape.global_batch * shape.seq_len),
+            ("prefill_32768", card_prefill, prefill_ms,
+             2 * n_active * PREFILL_LEN)):
+        med = statistics.median(ms)
+        lines[tag] = {
+            "counted_flops": counted["flops"],
+            "counted_product_flops": counted["product_flops"],
+            "counted_bytes": counted["bytes"], "model_flops": model_f,
+            "ms_runs": ms, "ms_median": med,
+            "achieved_tflops": counted["flops"] / med / 1e9,
+            "model_tflops": model_f / med / 1e9,
+            "bf16_peak_share": counted["flops"] / med * 1e3 / BF16_FLOPS}
+    out = {"phase": "dryrun", "arch": arch, "card": card_line(),
+           "argument_bytes": arg_bytes, "requested_growth": requested,
+           "allocated_growth": grown, "tensors": n_tensors,
+           "dry_run_train": {k: dry[k] for k in (
+               "flops_global_jaxpr", "product_flops_global",
+               "hbm_bytes_per_device", "memory")},
+           "train_meta": meta_train, "prefill_meta": meta_prefill,
+           "densify_launches": D.densify_kernel.launches,
+           "flash_launches_by_variant":
+               dict(FA.flash_attention_kernel.launches_by_variant),
+           **lines}
+    print(json.dumps(out))
+    return {"densify": D.densify_kernel.launches,
+            "flash_by_variant":
+                dict(FA.flash_attention_kernel.launches_by_variant)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -5714,11 +5940,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_line())
     clock = PhaseClock()
     clock("build", phase_build, build)
     tokens = make_pipeline(get_config("transformer-big"), 8, 256
@@ -5827,7 +6049,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock("xlstm_f32", phase_xlstm_f32)
     xlstm_path = clock("xlstm_path", phase_path, train, D, comm, XLSTM_ARCH,
-                       (("dense_reduce", 2), ("sparse_gather", 1)),
+                       (("dense_reduce", 1), ("sparse_gather", 1)),
                        "xlstm_path", ("--batch-per-worker", "2"), False)
     clock("small_xlstm", phase_small_xlstm, train)
     torch.cuda.empty_cache()
@@ -5843,6 +6065,8 @@ def main() -> int:
     examples = clock("examples", phase_examples, D, Q, comm)
     torch.cuda.empty_cache()
     ef = clock("ef_smoke", phase_ef_smoke, train, D, Q, comm)
+    torch.cuda.empty_cache()
+    dry = clock("dryrun", phase_dryrun, train, D, FA)
     small_flash = small_mla["flash_launches_by_variant"]
     swap, fused_swap = serving["swap"], serving["fused_swap"]
     swap_launches = swap["launches"] + fused_swap["launches"]
@@ -5856,7 +6080,7 @@ def main() -> int:
         + seamless_path["densify_launches"] + moe_path["densify_launches"]
         + mla_path["densify_launches"] + xlstm_path["densify_launches"]
         + tele["densify"] + tuning["densify"] + examples["densify"]
-        + ef["densify"],
+        + ef["densify"] + dry["densify"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
@@ -5871,7 +6095,8 @@ def main() -> int:
                               "telemetry": tele["densify"],
                               "tuning": tuning["densify"],
                               "examples": examples["densify"],
-                              "ef_smoke": ef["densify"]},
+                              "ef_smoke": ef["densify"],
+                              "dryrun": dry["densify"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -5970,7 +6195,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": prefill["launches"] + trans["launches"]
         + hpre["flash_launches_per_forward"] + dpre["launches"]
-        + vpre["launches"] + mpre["launches"] + sum(small_flash.values()),
+        + vpre["launches"] + mpre["launches"] + sum(small_flash.values())
+        + sum(dry["flash_by_variant"].values()),
         "sources": ["src/repro_torch/csrc/flash_attention_sm90.cu",
                     "src/repro_torch/csrc/flash_attention.cu"],
         "launches_by_variant": {
@@ -5980,6 +6206,7 @@ def main() -> int:
             + dpre["launches_by_variant"][k]
             + vpre["launches_by_variant"][k]
             + mpre["launches_by_variant"][k] + small_flash[k]
+            + dry["flash_by_variant"][k]
             for k in prefill["launches_by_variant"]},
         "launches_by_phase": {
             "prefill": prefill["launches"], "translate": trans["launches"],
@@ -5989,7 +6216,8 @@ def main() -> int:
             "moe_prefill": mpre["launches"],
             # Dv != D: the chunked route (0); the reduced MLA's D = 32
             # in f32 on "simt"
-            "mla_prefill": 0, "small_mla": sum(small_flash.values())},
+            "mla_prefill": 0, "small_mla": sum(small_flash.values()),
+            "dryrun": sum(dry["flash_by_variant"].values())},
         "max_abs_err": akern["max_abs_err"],
         "ms": akern["prefill_self"]["kernel_ms"],
         "mma_ms": akern["prefill_self"]["mma_ms"],

@@ -15,7 +15,8 @@ to the values' dtype — ``repro.kernels.densify``'s contract):
     one pass that writes every output row once, summing its rows in that
     order, so the result is the same bit for bit from run to run;
   * ``densify_plain`` is the plain PyTorch version (f32 ``index_add_``
-    over the valid rows), which CPU tensors take.
+    of every row, the invalid ones into a spare row past the output),
+    which CPU and meta tensors take.
 """
 from __future__ import annotations
 
@@ -31,13 +32,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def densify_plain(indices: torch.Tensor, values: torch.Tensor,
                   dense_shape: Tuple[int, int]) -> torch.Tensor:
-    """Plain PyTorch version: f32 ``index_add_`` of the valid rows, then
-    a cast to the values' dtype."""
+    """Plain PyTorch version: f32 ``index_add_`` of the rows in order,
+    those at invalid ids into a spare row that is not returned (so no op
+    depends on the ids' values: meta tensors take it too), then a cast to
+    the values' dtype."""
     vocab = dense_shape[0]
     valid = (indices >= 0) & (indices < vocab)
-    acc = torch.zeros(dense_shape, dtype=torch.float32, device=values.device)
-    acc.index_add_(0, indices[valid].long(), values[valid].float())
-    return acc.to(values.dtype)
+    rows = torch.where(valid, indices.long(), vocab)
+    acc = torch.zeros((vocab + 1,) + tuple(dense_shape[1:]),
+                      dtype=torch.float32, device=values.device)
+    acc.index_add_(0, rows, values.float())
+    return acc[:vocab].to(values.dtype)
 
 
 def _check(indices: torch.Tensor, values: torch.Tensor,

@@ -2,8 +2,16 @@
 
 Each wrapper dispatches on the device of the tensors it is given: a CUDA
 tensor launches the hand-written kernel (or raises), a CPU tensor takes
-the kernel's plain PyTorch version.  Nothing falls back from one to the
-other.
+the kernel's plain PyTorch version, and so does a ``meta`` tensor (the
+dry run: shapes only).  Nothing falls back from one to the other.
+
+While a FLOP counter is active (``repro_torch.launch.flops``) a launch
+bills what its plain version counts on the same shapes, and the
+dispatcher's count of the launch's own ops is set aside
+(``_launch``), so a step counts the same FLOPs on every route.  The
+attention kernel bills ``chunked_attention``'s count: its own plain
+version sweeps the key blocks that the causal mask empties, which the
+kernel and the chunked route skip.
 
 ``flash_attention`` also selects the attention algorithm by ``impl``,
 named after what it runs; each maps to one ``impl`` of
@@ -46,10 +54,23 @@ from repro_torch.kernels.quantize import (
     decode_sum_kernel, decode_sum_plain, quantize_ef_kernel,
     quantize_ef_plain, quantize_kernel, quantize_plain)
 from repro_torch.kernels.ssd import ssd_kernel, ssd_plain
+from repro_torch.telemetry import hooks as _hooks
 
 ATTN_IMPLS = ("ref", "chunked", "kernel")
 SSD_IMPLS = ("ref", "kernel")
 SCORE_BLOCK_ELEMS = 1 << 28     # f32 scores of one chunked_attention block
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
+def _launch(run, plain, *args):
+    """``run()`` launches a kernel.  While a FLOP counter is active, the
+    launch is billed what ``plain(*args)`` counts on tensors of the same
+    shapes (``launch.flops.billed``); otherwise this is ``run()``, at the
+    cost of one global read."""
+    if _hooks.flop_counter() is None:
+        return run()
+    from repro_torch.launch import flops
+    return flops.billed(run, lambda: flops.work_of(plain, *args))
 
 
 def densify(indices: torch.Tensor, values: torch.Tensor,
@@ -62,8 +83,9 @@ def densify(indices: torch.Tensor, values: torch.Tensor,
     indices = indices.to(torch.int32).contiguous()
     values = values.contiguous()
     if indices.device.type == "cuda":
-        return densify_kernel(indices, values, dense_shape)
-    if indices.device.type == "cpu":
+        return _launch(lambda: densify_kernel(indices, values, dense_shape),
+                       densify_plain, indices, values, dense_shape)
+    if indices.device.type in _PLAIN_DEVICES:
         return densify_plain(indices, values, dense_shape)
     raise ValueError(f"densify: unsupported device {indices.device}")
 
@@ -73,8 +95,9 @@ def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     absmax scale (1,))``; dequantise with ``q.float() * scale``."""
     flat = flat.reshape(-1)
     if flat.device.type == "cuda":
-        return quantize_kernel(flat.contiguous())
-    if flat.device.type == "cpu":
+        return _launch(lambda: quantize_kernel(flat.contiguous()),
+                       quantize_plain, flat)
+    if flat.device.type in _PLAIN_DEVICES:
         return quantize_plain(flat)
     raise ValueError(f"quantize_int8: unsupported device {flat.device}")
 
@@ -91,8 +114,10 @@ def quantize_int8_ef(flat: torch.Tensor, residual: torch.Tensor
                          f"{tuple(residual.shape)} for {flat.numel()} "
                          f"elements")
     if flat.device.type == "cuda":
-        return quantize_ef_kernel(flat.contiguous(), residual)
-    if flat.device.type == "cpu":
+        return _launch(lambda: quantize_ef_kernel(flat.contiguous(),
+                                                  residual),
+                       quantize_ef_plain, flat, residual)
+    if flat.device.type in _PLAIN_DEVICES:
         return quantize_ef_plain(flat, residual)
     raise ValueError(f"quantize_int8_ef: unsupported device {flat.device}")
 
@@ -104,10 +129,11 @@ def int8_decode_sum(gathered_q: torch.Tensor, scales: torch.Tensor,
     gathered_q = gathered_q.reshape(-1)
     scales = scales.reshape(-1)
     if gathered_q.device.type == "cuda":
-        return decode_sum_kernel(gathered_q.contiguous(),
-                                 scales.to(torch.float32).contiguous(),
-                                 n_chunks)
-    if gathered_q.device.type == "cpu":
+        return _launch(lambda: decode_sum_kernel(
+                           gathered_q.contiguous(),
+                           scales.to(torch.float32).contiguous(), n_chunks),
+                       decode_sum_plain, gathered_q, scales, n_chunks)
+    if gathered_q.device.type in _PLAIN_DEVICES:
         return decode_sum_plain(gathered_q, scales, n_chunks)
     raise ValueError(f"int8_decode_sum: unsupported device "
                      f"{gathered_q.device}")
@@ -159,9 +185,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "(nor has the reference's); differentiate "
                            "through impl='chunked'")
     if q.device.type == "cuda":
-        return flash_attention_kernel(q, k, v, causal=causal, window=window)
+        return _launch(lambda: flash_attention_kernel(q, k, v, causal=causal,
+                                                      window=window),
+                       chunked_attention, q, k, v, causal, window)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return _launch(lambda: flash_attention_plain(q, k, v, causal=causal,
+                                                     window=window),
+                       chunked_attention, q, k, v, causal, window)
+    if q.device.type == "meta":
+        return chunked_attention(q, k, v, causal, window)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
@@ -180,10 +212,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The query rows run in blocks sized so that one f32 score block holds
     at most ``SCORE_BLOCK_ELEMS`` elements (one block at training and
     test sizes; 2048 rows at 32 heads and 32768 tokens, where the whole
-    block would take 17 GB), and a causal block skips the kv chunks that
-    start after its last query.  Neither changes a row's result: rows
-    are independent, and a chunk with every key masked leaves ``(acc, m,
-    l)`` as they were (alpha 1, p 0)."""
+    block would take 17 GB; no cap on meta tensors, which allocate
+    nothing), a causal block spans at most ``block_k`` rows, and it skips
+    the kv chunks that start after its last query.  None of this changes
+    a row's result: rows are independent, and a chunk with every key
+    masked leaves ``(acc, m, l)`` as they were (alpha 1, p 0)."""
     b, sq, h, d = q.shape
     k, v = _expand_kv(k, h), _expand_kv(v, h)
     sk = k.shape[1]
@@ -193,7 +226,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kp = F.pad(k, (0, 0, 0, 0, 0, pad))
     vp = F.pad(v, (0, 0, 0, 0, 0, pad))
     qf = q.to(torch.float32) * d ** -0.5
-    block_q = max(1, SCORE_BLOCK_ELEMS // (b * h * block_k))
+    block_q = (sq if q.device.type == "meta"
+               else max(1, SCORE_BLOCK_ELEMS // (b * h * block_k)))
+    if causal and nchunks > 1:
+        block_q = min(block_q, block_k)
     outs = []
     for q0 in range(0, sq, block_q):
         q_pos = torch.arange(q0, min(q0 + block_q, sq),
@@ -279,8 +315,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         b = F.pad(b, (0, 0, 0, pad))
         c = F.pad(c, (0, 0, 0, pad))
     if x.device.type == "cuda":
-        y, state = ssd_kernel(x, dt, a, b, c, chunk)
-    elif x.device.type == "cpu":
+        y, state = _launch(lambda: ssd_kernel(x, dt, a, b, c, chunk),
+                           ssd_plain, x, dt, a, b, c, chunk)
+    elif x.device.type in _PLAIN_DEVICES:
         y, state = ssd_plain(x, dt, a, b, c, chunk)
     else:
         raise ValueError(f"ssd: unsupported device {x.device}")

@@ -27,7 +27,8 @@ __all__ = [
     "WireRecorder", "wire_recorder", "install_wire_recorder",
     "clear_wire_recorder", "tracer", "install_tracer", "clear_tracer",
     "stage_scope", "current_stage", "record_collective", "tap",
-    "UNATTRIBUTED",
+    "UNATTRIBUTED", "flop_counter", "push_flop_counter",
+    "pop_flop_counter", "record_work",
 ]
 
 UNATTRIBUTED = "unattributed"
@@ -41,6 +42,7 @@ _LOCK = threading.Lock()
 _WIRE = None
 _TRACER = None
 _STAGE: list[str] = []
+_FLOPS: list = []           # active FLOP counters (launch.flops), innermost last
 
 
 class WireRecorder:
@@ -166,3 +168,35 @@ def tap(phase: str, value):
     if t is None:
         return value
     return t.tap(phase, current_stage(), value)
+
+
+# ---------------------------------------------------------------------------
+# FLOP counters (``repro_torch.launch.flops``)
+# ---------------------------------------------------------------------------
+
+def flop_counter():
+    """The innermost active FLOP counter, or None (the default).  A kernel
+    wrapper reads this once a launch and bills its work only when it is
+    set."""
+    return _FLOPS[-1] if _FLOPS else None
+
+
+def push_flop_counter(counter) -> None:
+    with _LOCK:
+        _FLOPS.append(counter)
+
+
+def pop_flop_counter(counter) -> None:
+    with _LOCK:
+        if not _FLOPS or _FLOPS[-1] is not counter:
+            raise RuntimeError("FLOP counters must exit innermost first")
+        _FLOPS.pop()
+
+
+def record_work(flops: float, nbytes: float,
+                product_flops: float = 0.0) -> None:
+    """Bill work the dispatcher cannot see (a kernel's launch) to the
+    active FLOP counter; a no-op when none is active."""
+    c = _FLOPS[-1] if _FLOPS else None
+    if c is not None:
+        c.add(flops, nbytes, product_flops)
