@@ -380,6 +380,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
                launches, each billed) against the chunked route on meta:
                FLOPs equal; each one's counted TFLOP/s and ``model_flops``
                TFLOP/s over the median of 3 timed runs.
+ 19. partitioned — remat and the partitioned step
+               (``launch/partitioned.py``): the launcher's full-width
+               transformer-big dense_reduce step (a world of 1 over NCCL,
+               densify launched once a step) with and without remat from
+               the same host-drawn weights, and full-width llama3.2-1b at
+               the dense path's shape (card-drawn weights, shared by both
+               runs): loss and every updated parameter bitwise (or the
+               leaves that differ listed and held at ``PATH_TOL``), each
+               run's ``max_memory_allocated``; on a (1, 1) mesh of DTensors
+               the 32768-token transformer-big prefill through
+               ``attn_impl="kernel"`` (12 "sm90" launches inside
+               ``local_map``) bitwise the unpartitioned prefill, with both
+               times, and the partitioned remat train step bitwise the
+               unpartitioned one.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit and
@@ -5926,6 +5940,203 @@ def phase_dryrun(train, D, FA) -> dict:
                 dict(FA.flash_attention_kernel.launches_by_variant)}
 
 
+def remat_pair(train, D, argv, host: bool) -> dict:
+    """One launcher training step of ``argv`` (a world of 1 must be up)
+    without and with remat, from the same weights (drawn on the host
+    when ``host``, else on the card), both on the same inputs: loss and
+    every updated parameter bitwise, else the differing leaves listed and
+    held at ``PATH_TOL``; each run's ``max_memory_allocated`` and its
+    growth over the memory held before it."""
+    import torch.distributed as dist
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.training import make_train_step
+    from repro_torch.tree import tree_flatten
+    args, cfg, batch_at = zero1_setup(train, argv)
+    model = build_model(cfg)
+    pipe = make_pipeline(cfg, args.batch_per_worker, args.seq_len,
+                         seed=args.seed)
+    params = (host_weights(model, args.seed, args.device) if host
+              else model.init(seed=args.seed, device=args.device))
+    opt = train.build_optimizer(args, cfg, dist.group.WORLD)
+    opt_state = opt.init(params)
+    ex_state = opt.init_exchange_state(
+        train.meta_worker_grads(args, model, pipe, True), device=args.device)
+    batch = batch_at(0)
+    runs, launches = {}, 0
+    for remat in (False, True):
+        step = make_train_step(model, opt, sparse_embedding=True,
+                               remat=remat)
+        D.densify_kernel.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        (new_p, _, _, metrics), ms = timed(
+            lambda: step(params, opt_state, ex_state, batch))
+        peak = torch.cuda.max_memory_allocated()
+        if D.densify_kernel.launches != 1:
+            fail(f"partitioned: the {args.arch} step (remat={remat}) "
+                 f"launched densify {D.densify_kernel.launches} times")
+        launches += D.densify_kernel.launches
+        runs[remat] = {"loss": metrics["loss"],
+                       "params": tree_flatten(new_p)[0], "ms": ms,
+                       "peak_bytes": peak, "peak_over_held": peak - held}
+        del new_p, metrics
+    plain, rem = runs[False], runs[True]
+    bad = differing([plain["loss"]] + plain["params"],
+                    [rem["loss"]] + rem["params"])
+    worst = {}
+    for i in bad:
+        a = ([plain["loss"]] + plain["params"])[i]
+        b = ([rem["loss"]] + rem["params"])[i]
+        diff = logits_diff(f"partitioned remat {args.arch} leaf {i}", b, a)
+        worst[i] = diff
+        if diff["max_abs"] > PATH_TOL["max_abs"] or \
+                diff["rel_l2"] > PATH_TOL["rel_l2"]:
+            fail(f"partitioned: remat {args.arch} leaf {i} differs: {diff} "
+                 f"(limits {PATH_TOL})")
+    return {"arch": args.arch, "tokens": [args.batch_per_worker,
+                                          args.seq_len],
+            "bitwise": not bad, "differing_leaves": worst,
+            "loss": float(plain["loss"]), "densify_launches": launches,
+            **{("remat" if r else "plain"): {
+                k: runs[r][k] for k in ("ms", "peak_bytes",
+                                        "peak_over_held")}
+               for r in (False, True)}}
+
+
+def phase_partitioned(train, D, FA) -> dict:
+    """Remat and the partitioned step on the card (module docstring, 19):
+
+      (a) ``remat_pair`` on the launcher's full-width transformer-big
+          dense_reduce step (``FULL_WIDTH``), host-drawn weights;
+      (b) ``remat_pair`` on full-width llama3.2-1b at the dense path's
+          shape;
+      (c) on a (1, 1) ("data", "model") mesh of DTensors over the world
+          of 1, the 32768-token transformer-big prefill through the
+          kernel route, its parameters laid out by the dry run's rules:
+          12 "sm90" launches, reached inside ``local_map``, and logits
+          bitwise the unpartitioned prefill's; both timed (median of
+          ``DRYRUN_RUNS``);
+      (d) the partitioned remat train step at ``FULL_WIDTH``'s shape
+          bitwise the unpartitioned one (loss, parameters, AdamW state).
+
+    Returns the phase's densify and flash launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import DistributedOptimizer, ExchangeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import partitioned as part
+    from repro_torch.launch import sharding as shard_lib
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, noam_schedule
+    from repro_torch.training import make_train_step
+    from repro_torch.tree import tree_flatten
+    card = card_line()
+    dp = ("data",)
+    created = _world_of_one(train)
+    try:
+        tb = remat_pair(train, D, FULL_WIDTH + [
+            "--grad-accum", "dense_reduce", "--steps", "1"], host=True)
+        torch.cuda.empty_cache()
+        llama = remat_pair(train, D, full_width("llama3.2-1b") + [
+            "--grad-accum", "dense_reduce", "--steps", "1"], host=False)
+        torch.cuda.empty_cache()
+        spec = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        dmesh = mesh_lib.device_mesh(spec, "cuda")
+        cfg = get_config("transformer-big")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda")
+        p_spec = shard_lib.params_shardings(params, spec)
+        dparams = part.distribute(params, p_spec, spec, dmesh)
+
+        # (c) the prefill
+        host = {k: v for k, v in make_pipeline(cfg, 1, PREFILL_LEN)
+                .batch_at(0).items() if k != "labels"}
+        pbatch = {k: torch.from_numpy(v).to("cuda").contiguous()
+                  for k, v in host.items()}
+        dbatch = part.distribute(pbatch, shard_lib.batch_shardings(
+            pbatch, spec), spec, dmesh)
+
+        def prefill(p, b):
+            h = model.forward(p, b, attn_impl="kernel")
+            return model.head(p, h[:, -1:])
+        parted = part.partitioned_call(prefill, dp)
+        want = 2 * cfg.n_layers
+        with torch.no_grad():
+            plain = prefill(params, pbatch)
+            FA.reset_launches()
+            got = parted(dparams, dbatch)
+            torch.cuda.synchronize()
+            sm90 = FA.flash_attention_kernel.launches_by_variant["sm90"]
+            by_variant = dict(FA.flash_attention_kernel.launches_by_variant)
+            if sm90 != want or sum(by_variant.values()) != want:
+                fail(f"partitioned: the prefill made {by_variant} flash "
+                     f"launches (want {want} on sm90)")
+            got = got.full_tensor()
+            if not same_bits(got, plain):
+                fail(f"partitioned: the (1, 1) prefill's logits differ "
+                     f"from the unpartitioned ones: "
+                     f"{logits_diff('partitioned prefill', got, plain)}")
+            plain_ms = [timed(lambda: prefill(params, pbatch))[1]
+                        for _ in range(DRYRUN_RUNS)]
+            part_ms = [timed(lambda: parted(dparams, dbatch))[1]
+                       for _ in range(DRYRUN_RUNS)]
+        del got, plain, pbatch, dbatch
+        torch.cuda.empty_cache()
+
+        # (d) the train step
+        args, _, batch_at = zero1_setup(train, FULL_WIDTH + [
+            "--grad-accum", "dense_reduce", "--steps", "1"])
+        params = host_weights(model, args.seed, "cuda")
+        opt = DistributedOptimizer(
+            adamw(noam_schedule(cfg.d_model, warmup_steps=args.warmup)),
+            exchange=ExchangeConfig(sparse_as_dense=True,
+                                    algorithm="proposed_algorithm2",
+                                    use_kernel=True))
+        opt_state = opt.init(params)
+        batch = batch_at(0)
+        kw = dict(attn_impl="chunked", remat=True)
+        ref = make_train_step(model, opt, **kw)(
+            params, opt_state, opt.init_exchange_state(
+                params, device="cuda"), batch)
+        o_spec = shard_lib.params_shardings(opt_state, spec)
+        dstep = part.make_partitioned_train_step(model, opt, dp, **kw)
+        out, step_ms = timed(lambda: dstep(
+            part.distribute(params, p_spec, spec, dmesh),
+            part.distribute(opt_state, o_spec, spec, dmesh), None,
+            part.distribute(batch, shard_lib.batch_shardings(batch, spec),
+                            spec, dmesh)))
+        mine = ([out[3]["loss"]] + tree_flatten(out[0])[0]
+                + tree_flatten(out[1]._asdict())[0])
+        mine = [t.full_tensor() if hasattr(t, "full_tensor") else t
+                for t in mine]
+        want_t = ([ref[3]["loss"]] + tree_flatten(ref[0])[0]
+                  + tree_flatten(ref[1]._asdict())[0])
+        bad, n_compared = differing(mine, want_t), len(mine)
+        if bad:
+            fail(f"partitioned: the (1, 1) train step differs from the "
+                 f"unpartitioned one in tensors {bad[:10]}")
+        del out, ref, mine, want_t, params, dparams, opt_state
+    finally:
+        if created:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out = {"phase": "partitioned", "card": card,
+           "remat_transformer_big": tb, "remat_llama": llama,
+           "prefill": {"tokens": PREFILL_LEN, "sm90_launches": sm90,
+                       "bitwise": True, "plain_ms_runs": plain_ms,
+                       "partitioned_ms_runs": part_ms,
+                       "plain_ms": statistics.median(plain_ms),
+                       "partitioned_ms": statistics.median(part_ms)},
+           "train_step": {"bitwise": True, "tensors": n_compared,
+                          "ms": step_ms}}
+    print(json.dumps(out))
+    return {"densify": tb["densify_launches"] + llama["densify_launches"],
+            "flash_by_variant": by_variant}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -6067,6 +6278,8 @@ def main() -> int:
     ef = clock("ef_smoke", phase_ef_smoke, train, D, Q, comm)
     torch.cuda.empty_cache()
     dry = clock("dryrun", phase_dryrun, train, D, FA)
+    torch.cuda.empty_cache()
+    parted = clock("partitioned", phase_partitioned, train, D, FA)
     small_flash = small_mla["flash_launches_by_variant"]
     swap, fused_swap = serving["swap"], serving["fused_swap"]
     swap_launches = swap["launches"] + fused_swap["launches"]
@@ -6080,7 +6293,7 @@ def main() -> int:
         + seamless_path["densify_launches"] + moe_path["densify_launches"]
         + mla_path["densify_launches"] + xlstm_path["densify_launches"]
         + tele["densify"] + tuning["densify"] + examples["densify"]
-        + ef["densify"] + dry["densify"],
+        + ef["densify"] + dry["densify"] + parted["densify"],
         "launches_by_phase": {"path": path["densify_launches"],
                               "codec": codec["densify_launches"],
                               "overlap": overlap["launches"]["densify"],
@@ -6096,7 +6309,8 @@ def main() -> int:
                               "tuning": tuning["densify"],
                               "examples": examples["densify"],
                               "ef_smoke": ef["densify"],
-                              "dryrun": dry["densify"]},
+                              "dryrun": dry["densify"],
+                              "partitioned": parted["densify"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -6196,7 +6410,8 @@ def main() -> int:
         "launches": prefill["launches"] + trans["launches"]
         + hpre["flash_launches_per_forward"] + dpre["launches"]
         + vpre["launches"] + mpre["launches"] + sum(small_flash.values())
-        + sum(dry["flash_by_variant"].values()),
+        + sum(dry["flash_by_variant"].values())
+        + sum(parted["flash_by_variant"].values()),
         "sources": ["src/repro_torch/csrc/flash_attention_sm90.cu",
                     "src/repro_torch/csrc/flash_attention.cu"],
         "launches_by_variant": {
@@ -6206,7 +6421,7 @@ def main() -> int:
             + dpre["launches_by_variant"][k]
             + vpre["launches_by_variant"][k]
             + mpre["launches_by_variant"][k] + small_flash[k]
-            + dry["flash_by_variant"][k]
+            + dry["flash_by_variant"][k] + parted["flash_by_variant"][k]
             for k in prefill["launches_by_variant"]},
         "launches_by_phase": {
             "prefill": prefill["launches"], "translate": trans["launches"],
@@ -6217,7 +6432,8 @@ def main() -> int:
             # Dv != D: the chunked route (0); the reduced MLA's D = 32
             # in f32 on "simt"
             "mla_prefill": 0, "small_mla": sum(small_flash.values()),
-            "dryrun": sum(dry["flash_by_variant"].values())},
+            "dryrun": sum(dry["flash_by_variant"].values()),
+            "partitioned": sum(parted["flash_by_variant"].values())},
         "max_abs_err": akern["max_abs_err"],
         "ms": akern["prefill_self"]["kernel_ms"],
         "mma_ms": akern["prefill_self"]["mma_ms"],

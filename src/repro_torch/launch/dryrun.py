@@ -2,38 +2,65 @@
 the parts that are not XLA's).
 
 The reference lowers and compiles every (arch x shape x mesh) on 512
-emulated TPU devices.  The port runs the same steps once on ``meta``
-tensors at the global shape: no memory, no device, every aten op
-dispatched and counted (``launch.flops``).  The mesh comes from
-``launch.mesh``, the per-leaf layouts from ``launch.sharding``, and the
-mesh itself is built as a ``DeviceMesh`` over a fake world of its size
-in this one process (``torch.distributed``'s ``fake`` backend, where a
-collective returns at once).
+emulated TPU devices, GSPMD partitioning each step.  The port runs the
+same steps once, with no memory and no device, every aten op dispatched
+and counted (``launch.flops``), in one of two modes.  ``--mode meta``
+(the default) runs a step unpartitioned on ``meta`` tensors at the
+global shape.  ``--mode gspmd`` (recorded as ``"dtensor"``) runs it
+partitioned: every argument a meta ``DTensor`` laid out over the mesh's
+``DeviceMesh``, the step under ``activation_sharding`` (see
+``launch.partitioned``).  The mesh comes from ``launch.mesh``, the
+per-leaf layouts from ``launch.sharding``, and the ``DeviceMesh`` is
+built over a fake world of the mesh's size in this one process
+(``torch.distributed``'s ``fake`` backend, where a collective returns at
+once and leaves its output unwritten).
 
-  * ``build_step`` builds the train step (loss, backward and AdamW under
-    Noam with the paper's exchange, ``sparse_as_dense`` and
+  * ``build_step`` builds the train step (loss with remat, backward and
+    AdamW under Noam with the paper's exchange, ``sparse_as_dense`` and
     ``proposed_algorithm2``), the prefill step (forward, then the head on
     the last position) or the serve step (``decode_step``), with its
-    arguments and their layouts.  Departure: the port has no remat.
+    arguments and their layouts.
   * ``analyse`` counts the step: ``flops_global_jaxpr`` (the reference's
     key, here the dispatch count), per-device FLOPs and bytes, the
-    per-device argument and output bytes (exact sums of shard shapes),
-    and for a train step the data-parallel exchange's wire bytes
-    (``plan.wire_bytes`` over the data axes, exact).  XLA's temp and
-    code bytes are null, and so are the model-axis collectives that
-    GSPMD would insert (not modelled).  The roofline terms come only
-    with a ``profile``.
+    per-device argument and output bytes, and for a train step the
+    data-parallel exchange's wire bytes (``plan.wire_bytes`` over the
+    data axes, exact).  The roofline terms come only with a ``profile``.
+    Unpartitioned, the counts are of the global step (per device: over
+    the chip count) and the argument and output bytes the exact sums of
+    the layouts' shard shapes; ``collective_bytes_per_device`` holds the
+    exchange alone, and ``model_axis_collectives`` and
+    ``memory.temp_bytes`` are null: no collective but the exchange's is
+    dispatched, and no shard is live.  Partitioned, the counts are rank
+    0's (``flops_global_jaxpr`` = n_chips x that: ranks are alike up to
+    uneven tails, and rank 0 holds the largest shards), the collectives
+    DTensor dispatched are reported by kind (``collective_counts``,
+    ``collective_bytes_per_device``: each call's result bytes, which
+    ``collective_total_bytes`` sums; the exchange's entry is the plan's
+    account of the data-axis reduction among them and is not added), and
+    by mesh dim (``model_axis_collectives``, ``data_axis_collectives``);
+    ``memory.temp_bytes`` is the peak of the local storages the step
+    creates (its outputs included, its arguments not): the counterpart
+    of XLA's ``temp_size_in_bytes``, not claimed equal to it.  In both
+    modes ``generated_code_bytes`` is null: nothing is compiled.
   * ``audit_exchange_plan`` runs the plan-scheduled exchange on a real
     gradient tree in a fake world of ``n_workers`` and holds the plan's
     collective count and wire bytes to the comm layer's counters and the
-    wire recorder.
+    wire recorder; ``audit_exchange_gspmd`` (``--audit-mode gspmd``)
+    reports the collectives DTensor chooses for the data-parallel
+    reduction beside the plan's.
   * ``model_flops`` / ``param_counts``: 6·N_active·D from the config.
+
+On a CPU mesh DTensor moves a shard from one dim to another with an
+all-gather and a chunk (gloo has no all-to-all), billed as an all-gather
+here; a CUDA mesh sends it as an all-to-all.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
-      --shape train_4k [--multi-pod] [--profile tpu] [--out out.json]
+      --shape train_4k [--mode gspmd] [--multi-pod] [--profile tpu] \\
+      [--out out.json] --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
-      transformer-big --audit-exchange --device cpu [--codec int8 ...]
+      transformer-big --audit-exchange [--audit-mode gspmd] --device cpu \\
+      [--codec int8 ...]
 """
 from __future__ import annotations
 
@@ -56,13 +83,14 @@ from repro_torch.core import (DistributedOptimizer, ExchangeConfig,
                               exchange)
 from repro_torch.launch import flops as flops_lib
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import partitioned as part_lib
 from repro_torch.launch import sharding as shard_lib
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, noam_schedule
 from repro_torch.training import make_train_step
 from repro_torch.training.gradients import abstract_grad_contributions
-from repro_torch.tree import tree_flatten
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -104,10 +132,16 @@ class DryStep:
     kind: str
     plan: Optional[exchange.ExchangePlan] = None
     dp_workers: int = 1
+    dp_axes: Tuple[str, ...] = ()
+    partitioned: bool = False
 
 
 def _input_shape(shape) -> InputShape:
     return INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+
+
+#: the reference's mode name -> the port's (recorded in the result)
+MODES = {"meta": "meta", "gspmd": "dtensor"}
 
 
 def build_step(arch: str, shape_name, multi_pod: bool,
@@ -116,11 +150,20 @@ def build_step(arch: str, shape_name, multi_pod: bool,
                mesh_override: Optional[mesh_lib.MeshSpec] = None,
                ssm_chunk: Optional[int] = None,
                moe_decode: str = "dropless",
-               loss_chunk: int = 512) -> Tuple[DryStep, Dict[str, Any]]:
+               loss_chunk: int = 512,
+               remat: bool = True) -> Tuple[DryStep, Dict[str, Any]]:
     """The step of ``shape_name`` (an ``INPUT_SHAPES`` name, or an
     ``InputShape``) on meta tensors at the global shape, with the
-    reference's layouts (``lower_step``'s arguments).  Returns ``(step,
-    meta)``."""
+    reference's layouts (``lower_step``'s arguments).  ``mode`` "meta"
+    runs it unpartitioned; "gspmd" (the reference's name, recorded as
+    "dtensor") runs it partitioned, on DTensors over the mesh
+    (``analyse`` distributes the arguments).  The train step rematerialises its
+    blocks, as the reference's does; ``remat=False`` turns that off.
+    Returns ``(step, meta)``."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got "
+                         f"{mode!r}")
+    part = MODES[mode] == "dtensor"
     attn_impl = ATTN_NAMES.get(attn_impl, attn_impl)
     cfg = get_config(arch)
     if ssm_chunk and cfg.ssm is not None:
@@ -144,7 +187,8 @@ def build_step(arch: str, shape_name, multi_pod: bool,
                else mesh_lib.data_axes(mesh))
     meta: Dict[str, Any] = dict(arch=arch, shape=shape.name,
                                 mesh=list(mesh.shape),
-                                axes=list(mesh.axis_names), mode=mode,
+                                axes=list(mesh.axis_names),
+                                mode=MODES[mode],
                                 pure_dp=pure_dp, attn_impl=attn_impl)
 
     if shape.kind == "train":
@@ -152,8 +196,12 @@ def build_step(arch: str, shape_name, multi_pod: bool,
             adamw(noam_schedule(cfg.d_model)),
             exchange=ExchangeConfig(sparse_as_dense=True,
                                     algorithm="proposed_algorithm2"))
-        step = make_train_step(model, opt, sparse_embedding=False,
-                               attn_impl=attn_impl, loss_chunk=loss_chunk)
+        loss_kw = dict(attn_impl=attn_impl, loss_chunk=loss_chunk,
+                       remat=remat)
+        step = (part_lib.make_partitioned_train_step(model, opt, dp_axes,
+                                                     **loss_kw) if part
+                else make_train_step(model, opt, sparse_embedding=False,
+                                     **loss_kw))
         batch = specs_lib.input_specs(cfg, shape)
         grads = abstract_grad_contributions(model, params, batch)
         opt_state = opt.init(params)
@@ -171,8 +219,8 @@ def build_step(arch: str, shape_name, multi_pod: bool,
         return DryStep(step, (params, opt_state, ex_state, batch),
                        (p_shard, o_shard, None, b_shard), train_outputs,
                        mesh, "train", plan=opt.plan(grads),
-                       dp_workers=math.prod(sizes[a] for a in dp_axes)
-                       ), meta
+                       dp_workers=math.prod(sizes[a] for a in dp_axes),
+                       dp_axes=dp_axes, partitioned=part), meta
 
     if shape.kind == "prefill":
         batch = specs_lib.input_specs(cfg, shape)
@@ -184,8 +232,10 @@ def build_step(arch: str, shape_name, multi_pod: bool,
 
         def prefill_outputs(logits):
             return logits, shard_lib.batch_shardings(logits, mesh)
-        return DryStep(prefill_step, (params, batch), (p_shard, b_shard),
-                       prefill_outputs, mesh, "prefill"), meta
+        return DryStep(part_lib.partitioned_call(prefill_step, dp_axes) if part
+                       else prefill_step, (params, batch),
+                       (p_shard, b_shard), prefill_outputs, mesh, "prefill",
+                       dp_axes=dp_axes, partitioned=part), meta
 
     toks, cache, window, ring = specs_lib.decode_specs(cfg, shape)
     enc = toks.pop("enc", None)
@@ -206,25 +256,79 @@ def build_step(arch: str, shape_name, multi_pod: bool,
     if enc is not None:
         args += (enc,)
         arg_specs += (shard_lib.batch_shardings(enc, mesh),)
-    return DryStep(serve_step, args, arg_specs, serve_outputs, mesh,
-                   "decode"), meta
+    return DryStep(part_lib.partitioned_call(serve_step, dp_axes) if part
+                   else serve_step, args, arg_specs, serve_outputs, mesh,
+                   "decode", dp_axes=dp_axes, partitioned=part), meta
+
+
+def _debug_counts(comm_mode) -> Dict[str, int]:
+    """``CommDebugMode``'s counts by the recorder's kinds."""
+    out: Dict[str, int] = {}
+    for op, n in comm_mode.get_comm_counts().items():
+        kind = part_lib.COLLECTIVE_KINDS.get(str(op).split(".")[-1],
+                                             str(op))
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def _run_partitioned(step: DryStep, device_type: str) -> Dict[str, Any]:
+    """Run ``step`` once on DTensors over its mesh (a world of the mesh's
+    size must be up) under the FLOP counter, ``CommDebugMode``, the
+    collective recorder and the live-bytes tracker."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    dmesh = mesh_lib.device_mesh(step.mesh, device_type)
+    args = tuple(part_lib.distribute(a, s, step.mesh, dmesh)
+                 for a, s in zip(step.args, step.arg_specs))
+    arg_bytes = part_lib.local_bytes([a for a, s in zip(args, step.arg_specs)
+                                      if s is not None])
+    rec = part_lib.CollectiveRecorder(dmesh)
+    with CommDebugMode() as comm_mode, rec, \
+            part_lib.LiveBytes() as live, flops_lib.FlopCounter() as counter:
+        out = step.fn(*args)
+    counts = _debug_counts(comm_mode)
+    if counts != rec.by_kind()[0]:
+        raise RuntimeError(f"CommDebugMode counted {counts}, the recorder "
+                           f"{rec.counts}")
+    return dict(out=out, counted=counter.result(), rec=rec,
+                comm_debug_counts=counts, temp_bytes=live.peak,
+                argument_bytes=arg_bytes,
+                output_bytes=part_lib.local_bytes(step.out_specs(out)[0]))
+
+
+def _axis_collectives(rec, dims) -> Dict[str, Any]:
+    counts, nbytes = rec.by_kind(dims)
+    return dict(axes=list(dims), counts=counts, bytes=nbytes,
+                total_bytes=float(sum(nbytes.values())))
 
 
 def analyse(step: DryStep, meta: Dict[str, Any], n_chips: int,
-            profile=None) -> Dict[str, Any]:
-    """Run ``step`` once on its meta arguments under the FLOP counter and
-    report what the reference's ``analyse`` reports, under its keys
-    (see the module docstring for what differs)."""
-    with flops_lib.FlopCounter() as counter:
-        out = step.fn(*step.args)
-    counted = counter.result()
-    flops_dev = counted["flops"] / n_chips
-    hbm_bytes = counted["bytes"] * 2.0 / n_chips        # read + write
-    coll: Dict[str, float] = {}
+            profile=None, device_type: str = "cpu") -> Dict[str, Any]:
+    """Run ``step`` once and report what the reference's ``analyse``
+    reports, under its keys (see the module docstring for what differs).
+    Unpartitioned, on its meta arguments at the global shape under the
+    FLOP counter; partitioned (``step.partitioned``), on DTensors over
+    the step's ``DeviceMesh`` (a world of ``n_chips`` ranks must be up;
+    ``device_type`` is the mesh's)."""
+    if step.partitioned:
+        run = _run_partitioned(step, device_type)
+        out, counted, rec = run["out"], run["counted"], run["rec"]
+        flops_dev = counted["flops"]
+        hbm_bytes = counted["bytes"] * 2.0              # read + write
+        coll_counts, coll = rec.by_kind()
+        coll_total = float(sum(coll.values()))
+    else:
+        with flops_lib.FlopCounter() as counter:
+            out = step.fn(*step.args)
+        counted = counter.result()
+        flops_dev = counted["flops"] / n_chips
+        hbm_bytes = counted["bytes"] * 2.0 / n_chips    # read + write
+        coll = {}
+        coll_total = 0.0
     if step.plan is not None:
         coll["data_parallel_exchange"] = float(
             step.plan.wire_bytes(step.dp_workers))
-    coll_total = float(sum(coll.values()))
+        if not step.partitioned:
+            coll_total = coll["data_parallel_exchange"]
     terms = dict(compute_s=None, memory_s=None, collective_s=None,
                  dominant=None)
     if profile is not None:
@@ -232,25 +336,39 @@ def analyse(step: DryStep, meta: Dict[str, Any], n_chips: int,
         from repro_torch.tuning.profile import get_profile
         terms = roofline_terms(flops_dev, hbm_bytes, coll_total, profile)
         meta = dict(meta, roofline_profile=get_profile(profile).name)
-    arg_bytes = sum(shard_lib.shard_bytes(a, s, step.mesh)
-                    for a, s in zip(step.args, step.arg_specs)
-                    if s is not None)
-    outs, out_specs = step.out_specs(out)
     result = dict(meta)
-    result.update(
-        flops_global_jaxpr=counted["flops"],
-        product_flops_global=counted["product_flops"],
-        flops_per_device=flops_dev,
-        hbm_bytes_per_device=hbm_bytes,
-        collective_bytes_per_device=coll,
-        collective_total_bytes=coll_total,
-        model_axis_collectives=None,
-        **terms,
-        memory=dict(
-            argument_bytes=arg_bytes,
-            output_bytes=shard_lib.shard_bytes(outs, out_specs, step.mesh),
-            temp_bytes=None, generated_code_bytes=None),
-        n_chips=n_chips)
+    if step.partitioned:
+        dp = [a for a in step.mesh.axis_names if a != "model"]
+        result.update(
+            flops_global_jaxpr=counted["flops"] * n_chips,
+            product_flops_global=counted["product_flops"] * n_chips,
+            collective_counts=coll_counts,
+            comm_debug_counts=run["comm_debug_counts"],
+            model_axis_collectives=_axis_collectives(rec, ["model"]),
+            data_axis_collectives=_axis_collectives(rec, dp),
+            memory=dict(argument_bytes=run["argument_bytes"],
+                        output_bytes=run["output_bytes"],
+                        temp_bytes=run["temp_bytes"],
+                        generated_code_bytes=None))
+    else:
+        outs, out_specs = step.out_specs(out)
+        result.update(
+            flops_global_jaxpr=counted["flops"],
+            product_flops_global=counted["product_flops"],
+            model_axis_collectives=None,
+            memory=dict(
+                argument_bytes=sum(shard_lib.shard_bytes(a, s, step.mesh)
+                                   for a, s in zip(step.args,
+                                                   step.arg_specs)
+                                   if s is not None),
+                output_bytes=shard_lib.shard_bytes(outs, out_specs,
+                                                   step.mesh),
+                temp_bytes=None, generated_code_bytes=None))
+    result.update(flops_per_device=flops_dev,
+                  hbm_bytes_per_device=hbm_bytes,
+                  collective_bytes_per_device=coll,
+                  collective_total_bytes=coll_total, **terms,
+                  n_chips=n_chips)
     return result
 
 
@@ -277,7 +395,8 @@ def run_dryrun(arch: str, shape_name: str, multi_pod: bool = False,
     n_chips = step.mesh.size
     with fake_world(n_chips):
         meta["sharded_leaves"] = check_mesh(step, device)
-        result = analyse(step, meta, n_chips, profile=profile)
+        result = analyse(step, meta, n_chips, profile=profile,
+                         device_type=device)
     result.update(model_flops(arch, shape_name))
     total = result["flops_global_jaxpr"]
     result["useful_flops_ratio"] = (result["model_flops"] / total
@@ -448,6 +567,125 @@ def _audit_fn(opt, plan, model, grads, params, batch):
     return (lambda g: opt.exchange(g), (grads,))
 
 
+def audit_exchange_gspmd(arch: str = "transformer-big", n_workers: int = 8,
+                         reduced: bool = True,
+                         fusion_threshold: Optional[int] = None,
+                         codec: str = "identity",
+                         backend: str = "flat",
+                         batch_per_worker: int = 2,
+                         seq_len: int = 32,
+                         profile: str = "ib",
+                         device: str = "cuda") -> Dict[str, Any]:
+    """Planned vs DTensor-chosen collectives for the data-parallel
+    reduction (the reference's GSPMD audit, ``audit_mode: "dtensor"``).
+
+    Each worker's contribution tree (the reduced or full config's real
+    one) is stacked on a leading axis sharded ``Shard(0)`` over a 1-D
+    ``("data",)`` mesh in a fake world of ``n_workers``: each rank holds
+    its own slice.  Each rank accumulates its slice by the plan
+    (``plan.accumulate_tree`` through ``local_map``), the mean over
+    workers is taken and redistributed to ``Replicate()``, and the
+    collectives DTensor dispatched for that are reported beside the
+    plan's schedule under the reference's keys; ``hlo_wire_bytes`` are
+    the dispatched collectives' exact bytes (each call's result), where
+    ``planned_wire_bytes`` count what a ring moves (an all-reduce of n
+    bytes: 2 (P - 1) / P x n), so the identity wire's ``wire_ratio`` is
+    2 (P - 1) / P.  Dense-destined plans only, as in the reference."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core.indexed_slices import IndexedSlices
+    from repro_torch.launch.train import resolve_device
+    from repro_torch.launch.tune import audit_grads
+    from repro_torch.tuning import cost as tuning_cost
+    from repro_torch.tuning.profile import get_profile
+
+    dev = resolve_device(device)
+    cfg, grads, _, _, _ = audit_grads(arch, reduced, batch_per_worker,
+                                      seq_len, dev)
+    opt = DistributedOptimizer(
+        adamw(noam_schedule(cfg.d_model)),
+        exchange=ExchangeConfig(sparse_as_dense=True,
+                                fusion_threshold=fusion_threshold,
+                                codec=codec, backend=backend))
+    plan = opt.plan(grads)
+    if plan.gather_leaf_ids:
+        raise ValueError("the partitioned audit supports dense-destined "
+                         "plans only (use the fake_pg audit for gather "
+                         "plans)")
+    leaves, treedef = tree_flatten(grads)
+
+    def tensors(c):             # a contribution's tensors, in order
+        if isinstance(c, list):
+            return [t for x in c for t in tensors(x)]
+        if isinstance(c, IndexedSlices):
+            return [c.indices, c.values]
+        return [c]
+
+    def rebuild(c, it):         # the contribution from those tensors
+        if isinstance(c, list):
+            return [rebuild(x, it) for x in c]
+        if isinstance(c, IndexedSlices):
+            return IndexedSlices(next(it), next(it), c.dense_shape)
+        return next(it)
+    parts = [t for leaf in leaves for t in tensors(leaf)]
+    p = n_workers
+
+    def accumulate(*local):
+        it = iter(x[0] for x in local)
+        tree = tree_unflatten(treedef, [rebuild(c, it) for c in leaves])
+        return tuple(x[None] for x in
+                     tree_flatten(plan.accumulate_tree(tree))[0])
+
+    with fake_world(n_workers):
+        dmesh = init_device_mesh(dev.type, (n_workers,),
+                                 mesh_dim_names=("data",))
+        shard = [Shard(0)]
+        stacked = [DTensor.from_local(
+            t[None], dmesh, shard, run_check=False,
+            shape=torch.Size((p,) + tuple(t.shape)),
+            stride=torch.empty((p,) + tuple(t.shape),
+                               device="meta").stride()) for t in parts]
+        rec = part_lib.CollectiveRecorder(dmesh)
+        with CommDebugMode() as comm_mode, rec:
+            acc = local_map(accumulate,
+                            out_placements=tuple([Shard(0)] for _ in
+                                                 range(plan.n_leaves)),
+                            in_placements=tuple(shard for _ in parts),
+                            device_mesh=dmesh)(*stacked)
+            for a in acc:
+                a.mean(dim=0).redistribute(dmesh, [Replicate()])
+        debug_counts = _debug_counts(comm_mode)
+        strategy = opt.exchange_stats(grads, p).strategy
+    counts, nbytes = rec.by_kind()
+    hlo_ops = sum(counts.values())
+    planned_ops = plan.hlo_collectives(p)
+    planned_wire = plan.wire_bytes(p)
+    hlo_wire = float(sum(nbytes.values()))
+    return dict(
+        arch=arch, reduced=reduced, n_workers=p, audit_mode="dtensor",
+        codec=plan.config.codec, backend=plan.config.backend,
+        strategy=strategy,
+        planned_n_collectives=plan.n_collectives,
+        planned_hlo_ops=planned_ops,
+        hlo_ops=hlo_ops,
+        hlo_counts=counts,
+        hlo_bytes=nbytes,
+        comm_debug_counts=debug_counts,
+        counts_match=hlo_ops == planned_ops,
+        collectives_found=hlo_ops > 0,
+        collective_delta=hlo_ops - planned_ops,
+        planned_wire_bytes=planned_wire,
+        hlo_wire_bytes=hlo_wire,
+        wire_ratio=(planned_wire / hlo_wire if hlo_wire else None),
+        predicted_comm_us=tuning_cost.predict_comm_us(plan, p, profile),
+        cost_profile=get_profile(profile).name,
+        plan_table=plan.describe(),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Reference FLOPs from the config
 # ---------------------------------------------------------------------------
@@ -516,17 +754,8 @@ def param_counts(cfg) -> tuple:
 # CLI
 # ---------------------------------------------------------------------------
 
-_NO_XLA = {
-    "audit_mode": "--audit-mode gspmd reports the collectives XLA's SPMD "
-                  "partitioner chooses; the port has no partitioner (its "
-                  "collectives are its own calls, which the shard_map-mode "
-                  "audit bills)",
-    "print_hlo": "--print-hlo prints XLA's HLO; the port compiles nothing "
-                 "(its steps run eagerly on meta tensors)",
-    "mode": "--mode gspmd lowers the step through XLA's SPMD partitioner; "
-            "the port's dry run counts the step on meta tensors "
-            "(--mode meta)",
-}
+NO_HLO = ("--print-hlo prints XLA's HLO; the port compiles nothing (its "
+          "steps run eagerly, on meta tensors or on DTensors over the mesh)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -541,7 +770,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--audit-mode", default="shard_map",
                     choices=["shard_map", "gspmd"],
                     help="shard_map: the plan-scheduled collectives must "
-                         "match the plan exactly (gspmd: XLA only)")
+                         "match the plan exactly; gspmd: report the "
+                         "collectives DTensor dispatches for the "
+                         "data-parallel reduction beside the plan")
     ap.add_argument("--codec", default="identity",
                     help="WireCodec registry name (registered: "
                          f"{', '.join(available_codecs())}; append "
@@ -574,7 +805,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reduce-scatter", action="store_true")
     ap.add_argument("--wire-dtype", default=None)
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--mode", default="meta", choices=["meta", "gspmd"])
+    ap.add_argument("--mode", default="meta", choices=sorted(MODES),
+                    help="meta: the step unpartitioned on meta tensors; "
+                         "gspmd: partitioned, on DTensors over the mesh, "
+                         "with the model-axis collectives and temp bytes")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--param-codec", default="identity")
@@ -602,6 +836,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def unshardable_op(exc: BaseException) -> str:
+    """The op DTensor found no sharding for, from its error (the
+    message's first line where it names none)."""
+    import re
+    text = str(exc)
+    m = re.search(r"(aten\.[\w.]+)", text)
+    return m.group(1) if m else text.strip().splitlines()[0][:200]
+
+
+def _dry(arch, shape, multi_pod, device, profile, kw) -> Dict[str, Any]:
+    """``run_dryrun``; a partitioned step that DTensor cannot lay out
+    gives ``{"error": ..., "op": ...}`` naming the op."""
+    try:
+        return run_dryrun(arch, shape, multi_pod, device, profile, **kw)
+    except (RuntimeError, NotImplementedError) as exc:
+        if MODES[kw.get("mode", "meta")] != "dtensor":
+            raise
+        return dict(arch=arch, shape=shape, mode="dtensor",
+                    error=f"the partitioned step has no sharding for "
+                          f"{unshardable_op(exc)}",
+                    op=unshardable_op(exc))
+
+
 def _write(result: Dict[str, Any], path: Optional[str]) -> None:
     if path:
         with open(path, "w") as f:
@@ -610,12 +867,9 @@ def _write(result: Dict[str, Any], path: Optional[str]) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag, on in (("audit_mode", args.audit_mode == "gspmd"),
-                     ("print_hlo", args.print_hlo),
-                     ("mode", args.mode == "gspmd")):
-        if on:
-            print(f"not ported: {_NO_XLA[flag]}", file=sys.stderr)
-            return 2
+    if args.print_hlo:
+        print(f"not ported: {NO_HLO}", file=sys.stderr)
+        return 2
     if args.tune:
         from repro_torch.launch import tune
         tune_argv = ["--arch", args.arch or "transformer-big",
@@ -630,6 +884,17 @@ def main(argv=None) -> int:
         if args.out:
             tune_argv += ["--out", args.out]
         return tune.main(tune_argv)
+    if args.audit_exchange and args.audit_mode == "gspmd":
+        result = audit_exchange_gspmd(
+            arch=args.arch or "transformer-big",
+            n_workers=args.audit_workers, reduced=not args.full_size,
+            fusion_threshold=args.fusion_threshold, codec=args.codec,
+            backend=args.backend, profile=args.profile or "ethernet",
+            device=args.device)
+        print(json.dumps(result, indent=2, default=str))
+        _write(result, args.out)
+        # a comparison: DTensor may legally fuse or split the reduction
+        return 0 if result["collectives_found"] else 1
     if args.audit_exchange:
         result = audit_exchange_plan(
             arch=args.arch or "transformer-big",
@@ -652,26 +917,38 @@ def main(argv=None) -> int:
         return 0 if result["counts_match"] else 1
     kw = dict(fsdp=not args.no_fsdp, pure_dp=args.pure_dp, zero1=args.zero1,
               attn_impl=args.attn_impl, ssm_chunk=args.ssm_chunk,
-              moe_decode=args.moe_decode, loss_chunk=args.loss_chunk)
+              moe_decode=args.moe_decode, loss_chunk=args.loss_chunk,
+              mode=args.mode)
     if args.sweep:
         os.makedirs(SWEEP_DIR, exist_ok=True)
+        failed = 0
         for arch in ARCH_IDS:
             for shape in INPUT_SHAPES:
                 for pod, multi in (("1pod", False), ("2pod", True)):
-                    result = run_dryrun(arch, shape, multi, args.device,
-                                        args.profile, **kw)
-                    path = os.path.join(SWEEP_DIR,
-                                        f"{arch}__{shape}__{pod}.json")
+                    result = _dry(arch, shape, multi, args.device,
+                                  args.profile, kw)
+                    tag = "" if MODES[args.mode] == "meta" else "__dtensor"
+                    path = os.path.join(
+                        SWEEP_DIR, f"{arch}__{shape}__{pod}{tag}.json")
                     _write(result, path)
-                    print(f"{path}: {result['flops_global_jaxpr']:.4g} "
-                          f"flop")
-        return 0
+                    if "error" in result:
+                        failed += 1
+                        print(f"{path}: {result['error']}")
+                    else:
+                        print(f"{path}: {result['flops_global_jaxpr']:.4g} "
+                              f"flop")
+        return 1 if failed else 0
     if args.arch is None or args.shape is None:
         print("--arch and --shape are required unless --audit-exchange, "
               "--tune or --sweep is given", file=sys.stderr)
         return 2
-    result = run_dryrun(args.arch, args.shape, args.multi_pod, args.device,
-                        args.profile, **kw)
+    result = _dry(args.arch, args.shape, args.multi_pod, args.device,
+                  args.profile, kw)
+    if "error" in result:
+        print(f"{args.arch} {args.shape}: {result['error']}",
+              file=sys.stderr)
+        _write(result, args.out)
+        return 1
     result.update(fsdp=not args.no_fsdp, ssm_chunk=args.ssm_chunk,
                   moe_decode=args.moe_decode, loss_chunk=args.loss_chunk)
     print(json.dumps(result, indent=2, default=str))

@@ -18,6 +18,11 @@ arithmetic), and counts:
   * ``bytes``: the output bytes of every op but views and bare
     allocations (``empty``), which write nothing in eager PyTorch.
 
+On DTensors (the partitioned step, ``launch.partitioned``) the counter
+lets DTensor dispatch and counts the local ops it runs: one rank's work,
+the ops of its redistributions included; the fake tensors of DTensor's
+shape propagation are not counted.
+
 A hand-written kernel's launch is invisible to the dispatcher.  Its
 wrapper (``kernels/ops.py``) therefore launches through ``billed``: while
 a counter is active the ops of the launch go uncounted and the work of
@@ -115,6 +120,20 @@ _PRODUCTS: Dict[Any, Callable] = {
 _FUSED_ADD = {aten.addmm, aten.baddbmm, aten.addbmm, aten.addmv, aten.addr}
 
 
+def _skipped(types):
+    """"dtensor" when a DTensor is among ``types``, "fake" for the fake
+    tensors of DTensor's shape propagation (not part of the run), else
+    None."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    for t in types:
+        if issubclass(t, DTensor):
+            return "dtensor"
+        if issubclass(t, FakeTensor):
+            return "fake"
+    return None
+
+
 class FlopCounter(TorchDispatchMode):
     """Counts what runs inside ``with FlopCounter() as c:`` (see the
     module docstring); ``c.result()`` gives ``{"flops", "bytes",
@@ -147,8 +166,13 @@ class FlopCounter(TorchDispatchMode):
                 "product_flops": self.product_flops}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        skip = _skipped(types)
+        if skip == "dtensor":
+            # a DTensor runs its local ops, which come back here: a
+            # partitioned step counts this rank's work
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
-        if not self.paused:
+        if not self.paused and not skip:
             self._count(func, args, out)
         return out
 

@@ -17,6 +17,13 @@ Attention without a cache dispatches through
 "chunked" or "kernel"; see that module) is a runtime choice; cached
 decode attention (``decode_attention``) is plain PyTorch, as the
 reference's is plain jnp.
+
+On DTensors (the partitioned step, ``launch/partitioned.py``) the
+attention and the grouped MoE dispatch run on each rank's shards
+(``attend``, ``_moe_experts``), a cache write lands in the rank's own
+block (``_sharded_update``), and the layout helpers of
+``models/activation_sharding.py`` gather what DTensor cannot split; on
+plain tensors each is the code it wraps.
 """
 from __future__ import annotations
 
@@ -29,6 +36,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.models.activation_sharding import (is_dtensor, replicated,
+                                                    shard_local,
+                                                    split_heads,
+                                                    whole_over_model)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 Params = Dict[str, Any]
@@ -129,9 +140,9 @@ def attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = split_heads(q, h, hd)
+    k = split_heads(k, kv, hd)
+    v = split_heads(v, kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     new_cache = None
@@ -146,9 +157,35 @@ def attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         out = decode_attention(q, ck, cv, length=pos0 + s, window=window,
                                ring=ring)
     else:
-        out = kops.flash_attention(q, k, v, causal=True, window=window,
-                                   impl=attn_impl)
+        out = attend(q, k, v, causal=True, window=window, impl=attn_impl)
     return out.reshape(b, s, h * hd) @ p["wo"], new_cache
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: Optional[int], impl: str) -> torch.Tensor:
+    """``ops.flash_attention`` on plain tensors.  On DTensors it runs
+    on each rank's batch shard and head shard (``shard_local``): the
+    heads split over ``model`` where they divide evenly; when the kv
+    heads do not (GQA with fewer kv heads than the model axis), each
+    rank takes every kv head and keeps the ones its query heads read."""
+    def run(q, k, v):
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    impl=impl)
+    if not is_dtensor(q):
+        return run(q, k, v)
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    m = mesh.shape[names.index("model")] if "model" in names else 1
+    h, kv = q.shape[2], k.shape[2]
+    if h % m or kv % m == 0:
+        return shard_local(run, (q, k, v), (2, 2, 2), 2, n=h)
+    rank = mesh.get_local_rank("model")
+    hq, g = h // m, h // kv
+
+    def gqa(q, k, v):
+        idx = (rank * hq + torch.arange(hq, device=k.device)) // g
+        return run(q, k.index_select(2, idx), v.index_select(2, idx))
+    return shard_local(gqa, (q, k, v), (2, None, None), 2, n=h)
 
 
 def _batched_update(cache: torch.Tensor, new: torch.Tensor,
@@ -162,12 +199,44 @@ def _batched_update(cache: torch.Tensor, new: torch.Tensor,
     s = new.shape[1]
     if s > c:
         raise ValueError(f"cache update of {s} rows into {c} slots")
+    if is_dtensor(cache):
+        return _sharded_update(cache, new, pos)
     start = torch.clamp(pos.to(torch.int64), 0, c - s)
     rows = start[:, None] + torch.arange(s, device=cache.device)
     out = cache.clone()
     out[torch.arange(b, device=cache.device)[:, None], rows] = \
         new.to(cache.dtype)
     return out
+
+
+def _sharded_update(cache, new: torch.Tensor, pos: torch.Tensor):
+    """``_batched_update`` of a DTensor cache whose batch and sequence
+    dims may be sharded: each rank writes the rows that fall in its own
+    block (the others go to a spare row past its end, dropped), from the
+    replicated new rows and positions."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache.device_mesh
+    c, s = cache.shape[1], new.shape[1]
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, list(cache.placements))
+    (b_l, c_l), (b0, c0) = shape[:2], offset[:2]
+    rep = [Replicate()] * mesh.ndim
+
+    def local(cache_l, new_f, pos_f):
+        start = torch.clamp(pos_f[b0:b0 + b_l].to(torch.int64), 0, c - s)
+        rows = start[:, None] + torch.arange(s, device=cache_l.device) - c0
+        rows = torch.where((rows >= 0) & (rows < c_l), rows, c_l)
+        out = torch.cat([cache_l, cache_l[:, :1]], dim=1)
+        out[torch.arange(b_l, device=cache_l.device)[:, None], rows] = \
+            new_f[b0:b0 + b_l].to(cache_l.dtype)
+        return out[:, :c_l]
+    return local_map(local, out_placements=list(cache.placements),
+                     in_placements=(list(cache.placements), rep, rep),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         cache, new, pos)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -189,7 +258,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, s, h, d = q.shape
     c, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
-    qg = q.reshape(b, s, kv, g, d)
+    # on DTensors the few query rows go whole over ``model`` (where the
+    # cache splits its slots), which the grouped view needs
+    qg = whole_over_model(q).reshape(b, s, kv, g, d)
     scores = torch.einsum("bskgd,bckd->bkgsc", qg.to(torch.float32),
                           k_cache.to(torch.float32)) * d ** -0.5
     slots = torch.arange(c, device=q.device)
@@ -227,11 +298,10 @@ def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     dt = torch.promote_types(enc.dtype, p["wk"].dtype)
     enc = enc.to(dt)
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (enc @ p["wk"].to(dt)).reshape(b, f, h, hd)
-    v = (enc @ p["wv"].to(dt)).reshape(b, f, h, hd)
-    out = kops.flash_attention(q, k, v, causal=False, window=None,
-                               impl=attn_impl)
+    q = split_heads(x @ p["wq"], h, hd)
+    k = split_heads(enc @ p["wk"].to(dt), h, hd)
+    v = split_heads(enc @ p["wv"].to(dt), h, hd)
+    out = attend(q, k, v, causal=False, window=None, impl=attn_impl)
     return out.reshape(b, s, h * hd) @ p["wo"]
 
 
@@ -265,7 +335,7 @@ def _mla_project(p: Params, cfg: ArchConfig, x: torch.Tensor,
     (B, s, kv_lora), roped shared key k_rope (B, s, rope))."""
     m = cfg.mla
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, m.nope_dim + m.rope_dim)
+    q = split_heads(x @ p["wq"], cfg.n_heads, m.nope_dim + m.rope_dim)
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv = rmsnorm(p["norm_ckv"], x @ p["w_dkv"], cfg.norm_eps)
@@ -370,8 +440,7 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         out = decode_attention(qf, k, vv, length=new_cache["length"],
                                window=window, ring=new_cache["ring"])
     else:
-        out = kops.flash_attention(qf, k, vv, causal=True, window=window,
-                                   impl=attn_impl)
+        out = attend(qf, k, vv, causal=True, window=window, impl=attn_impl)
     return out.reshape(b, s, h * m.v_dim) @ p["wo"], new_cache
 
 
@@ -472,9 +541,30 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
         xt = F.pad(xt, (0, 0, 0, pad))
     ng = (t + pad) // gs
     xg = xt.reshape(ng, gs, d)
-    probs, gate_vals, gate_idx = _route(p, xg, k)            # (g, gs, k)
     cap = (capacity_override if capacity_override is not None
            else max(int(gs * k / e * mo.capacity_factor), 1))
+    yt, me, fe = _moe_experts(p, xg, k, cap)
+    yt = yt.reshape(ng * gs, d)
+    if pad:
+        yt = yt[:t]
+    if mo.n_shared:
+        yt = yt + mlp(p["shared"], x.reshape(t, d))
+    return yt.reshape(b, s, d), e * torch.sum(fe * me)
+
+
+def _dispatch_combine(router, w_gate, w_up, w_down, xg, k: int, cap: int,
+                      lo: int = 0):
+    """Route every token of the groups ``xg`` (g, gs, d) over all E
+    experts, dispatch it to the experts ``w_*`` hold (E_l of them, from
+    expert ``lo``), and combine their outputs.  Returns (the routed
+    experts' output (g, gs, d), the routing probabilities' mean over the
+    rows (E,), the fraction routed to each expert times k (E,)): the
+    aux loss is E * sum(fraction * mean), over every row given (a group's
+    padding rows included)."""
+    ng, gs, _ = xg.shape
+    probs, gate_vals, gate_idx = _route({"router": router}, xg, k)
+    e = probs.shape[-1]
+    hi = lo + w_gate.shape[0]
     # each (token, slot)'s place in its expert's buffer: an exclusive
     # cumsum in token order over the flattened (gs * k) slots
     onehot = _one_hot(gate_idx, e, torch.int32)              # (g, gs, k, e)
@@ -484,21 +574,52 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
     keep = pos < cap
     gate_vals = gate_vals * keep
 
-    d_e = onehot.to(x.dtype)
-    d_c = _one_hot(pos, cap, x.dtype) * keep[..., None]
+    d_e = onehot[..., lo:hi].to(xg.dtype)
+    d_c = _one_hot(pos, cap, xg.dtype) * keep[..., None]
     dispatch = torch.einsum("gtke,gtkc->gtec", d_e, d_c)     # (g, gs, e, c)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)        # (g, e, c, d)
-    gg = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
-    uu = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    ye = torch.einsum("gecf,efd->gecd", F.silu(gg) * uu, p["w_down"])
+    gg = torch.einsum("gecd,edf->gecf", xe, w_gate)
+    uu = torch.einsum("gecd,edf->gecf", xe, w_up)
+    ye = torch.einsum("gecf,efd->gecd", F.silu(gg) * uu, w_down)
     combine = torch.einsum("gtke,gtkc,gtk->gtec", d_e, d_c,
-                           gate_vals.to(x.dtype))
-    yt = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(ng * gs, d)
-    if pad:
-        yt = yt[:t]
-    if mo.n_shared:
-        yt = yt + mlp(p["shared"], x.reshape(t, d))
-    return yt.reshape(b, s, d), _aux(probs, gate_idx, e, k)
+                           gate_vals.to(xg.dtype))
+    yt = torch.einsum("gtec,gecd->gtd", combine, ye)
+    me = probs.reshape(-1, e).mean(dim=0)
+    fe = _one_hot(gate_idx, e, torch.float32).reshape(-1, e).mean(dim=0) * k
+    return yt, me, fe
+
+
+def _moe_experts(p: Params, xg: torch.Tensor, k: int, cap: int):
+    """``_dispatch_combine`` over the groups ``xg``.  On DTensors it runs
+    on each rank's batch shard (whole groups) and expert shard: every
+    rank routes its tokens over all experts and runs its own, so the
+    output is a partial sum over ``model`` where the experts are split
+    there; the means of the aux loss are averaged over the data axes."""
+    args = (p["router"], p["w_gate"], p["w_up"], p["w_down"], xg)
+    if not is_dtensor(xg):
+        return _dispatch_combine(*args, k, cap)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.models.activation_sharding import batch_placements
+    mesh = xg.device_mesh
+    names = mesh.mesh_dim_names
+    e = p["w_gate"].shape[0]
+    m = mesh.shape[names.index("model")] if "model" in names else 1
+    split = m > 1 and e % m == 0
+    lo = mesh.get_local_rank("model") * (e // m) if split else 0
+    rep = [Replicate()] * mesh.ndim
+    experts = list(batch_placements(mesh, 0, e if split else 0, axes=()))
+    tokens = list(batch_placements(mesh, batch=xg.shape[0]))
+    out = list(tokens)
+    means = [Partial("avg") if isinstance(pl, Shard) else Replicate()
+             for pl in tokens]
+    if split:
+        out[names.index("model")] = Partial()
+    return local_map(
+        lambda *a: _dispatch_combine(*a, k, cap, lo=lo),
+        out_placements=(out, means, means),
+        in_placements=(rep, experts, experts, experts, tokens),
+        device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def _moe_ffn_dropless(p: Params, cfg: ArchConfig, x: torch.Tensor
@@ -534,7 +655,10 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
     ``d(loss)/d(tap)`` is the PER-TOKEN cotangent — ``tf.gather``'s
     IndexedSlices values (see ``training.gradients``)."""
     if tap is None:
-        return table[ids.long()]
+        # on DTensors the whole batch's ids: DTensor (torch 2.11) lays out
+        # no backward (index_put) of a lookup by batch-sharded ids, so
+        # every data rank looks up all rows and ``constrain_batch`` cuts
+        return table[replicated(ids).long()]
     return table.detach()[ids.long()] + tap
 
 

@@ -25,6 +25,18 @@ and ``head`` on the last position; serving runs ``init_cache``,
 ``prefill``, ``decode_step`` and ``reset_slots`` (``repro.models.model``'s
 serving API).
 
+``remat=True`` (training routes only) rematerialises what the
+reference wraps in ``jax.checkpoint``: each block of the dense, moe,
+audio and vlm families, each hybrid segment (its Mamba2 layers and the
+shared block; the trailing layers are not wrapped) and each xLSTM layer,
+through ``torch.utils.checkpoint`` (non-reentrant).  The backward
+recomputes the unit's forward, with the same ops on the same inputs, so
+losses and gradients are bitwise the plain ones'.  The residual stream
+passes ``constrain_batch`` where the reference's does (the embedding, each
+block's output, the hybrid and xLSTM layer bodies): the identity unless a
+partitioned step has installed its data axes
+(``repro_torch.models.activation_sharding``).
+
 Parameters are one nested dict whose per-layer leaves are stacked on a
 leading ``n_layers`` axis, the reference's layout (``repro.models.model``),
 so the gradient tree flattens to the same leaves, shapes, dtypes and order
@@ -42,6 +54,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.activation_sharding import (constrain_batch,
+                                                    logsumexp,
+                                                    vocab_sharded)
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -88,14 +103,17 @@ def _block(p: Params, cfg: ArchConfig, x: torch.Tensor,
                            L.rmsnorm(p["norm1"], x, cfg.norm_eps),
                            positions, kv_cache=cache, window=window,
                            attn_impl=attn_impl)
-    x = x + a
+    # the reference pins the block's output only, which GSPMD's two-way
+    # propagation carries back to these adds; DTensor propagates forward
+    # only, so each add is pinned here (the identity unpartitioned)
+    x = constrain_batch(x + a)
     if enc is not None and "xattn" in p:
-        x = x + L.cross_attention(p["xattn"], cfg,
-                                  L.rmsnorm(p["norm_x"], x, cfg.norm_eps),
-                                  enc, attn_impl=attn_impl)
+        x = constrain_batch(x + L.cross_attention(
+            p["xattn"], cfg, L.rmsnorm(p["norm_x"], x, cfg.norm_eps), enc,
+            attn_impl=attn_impl))
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if cfg.moe is None:
-        return x + L.mlp(p["ffn"], h), new_cache, \
+        return constrain_batch(x + L.mlp(p["ffn"], h)), new_cache, \
             torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None and moe_mode == "capacity":
         t = x.shape[0] * x.shape[1]
@@ -105,7 +123,21 @@ def _block(p: Params, cfg: ArchConfig, x: torch.Tensor,
                            capacity_override=min(cap, t))
     else:
         f, aux = L.moe_ffn(p["ffn"], cfg, h, dropless=cache is not None)
-    return x + f, new_cache, aux
+    return constrain_batch(x + f), new_cache, aux
+
+
+def _rematted(fn, remat: bool):
+    """``fn`` itself, or under ``remat`` a function that runs it through
+    ``torch.utils.checkpoint`` (non-reentrant; the model draws no random
+    numbers, so no RNG state is kept)."""
+    if not remat:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
 
 
 def _unstack(stacked: Params):
@@ -205,16 +237,18 @@ class Model:
     def forward(self, params: Params, batch: Dict[str, torch.Tensor],
                 taps: Optional[torch.Tensor] = None,
                 window: Optional[int] = None,
-                attn_impl: str = "chunked") -> torch.Tensor:
+                attn_impl: str = "chunked",
+                remat: bool = False) -> torch.Tensor:
         """Final hidden states (B, S, d) at the token positions
         (``forward_aux`` without its MoE aux loss)."""
         return self.forward_aux(params, batch, taps=taps, window=window,
-                                attn_impl=attn_impl)[0]
+                                attn_impl=attn_impl, remat=remat)[0]
 
     def forward_aux(self, params: Params, batch: Dict[str, torch.Tensor],
                     taps: Optional[torch.Tensor] = None,
                     window: Optional[int] = None,
-                    attn_impl: str = "chunked"
+                    attn_impl: str = "chunked",
+                    remat: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(final hidden states, the MoE aux loss summed over the layers:
         f32, zero without experts), the reference's ``forward``.  Hidden
@@ -226,9 +260,16 @@ class Model:
         forward only: the prefill step) or "ref".  In the hybrid family
         it also routes the Mamba2 blocks' SSD scan: "kernel" through the
         SSD kernel, the others through the plain ``ssd_chunked``; the ssm
-        family has no attention and ignores it."""
+        family has no attention and ignores it.  ``remat`` as in the
+        module docstring; the "kernel" route runs forward only and
+        raises under it."""
         cfg = self.cfg
-        x = L.embed(params["embedding"], batch["tokens"], tap=taps)
+        if remat and attn_impl == "kernel":
+            raise ValueError("remat recomputes for a backward pass, and "
+                             "attn_impl='kernel' is forward only: "
+                             "differentiate through 'chunked' or 'ref'")
+        x = constrain_batch(L.embed(params["embedding"], batch["tokens"],
+                                    tap=taps))
         enc, n_prefix = None, 0
         if cfg.frontend is not None:
             fe = batch["frontend"].to(x.dtype)
@@ -241,13 +282,17 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "hybrid":
             x = self._hybrid_forward(params, x, positions, window,
-                                     attn_impl)
+                                     attn_impl, remat)
         elif cfg.family == "ssm":
-            x = self._xlstm_forward(params, x)
+            x = self._xlstm_forward(params, x, remat)
         else:
+            def block_fn(lp, xx):
+                out, _, a = _block(lp, cfg, xx, positions, None, enc,
+                                   window, attn_impl)
+                return out, a
+            block_fn = _rematted(block_fn, remat)
             for lp in _unstack(params["layers"]):
-                x, _, a = _block(lp, cfg, x, positions, None, enc, window,
-                                 attn_impl)
+                x, a = block_fn(lp, x)
                 aux = aux + a
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return (x[:, n_prefix:] if n_prefix else x), aux
@@ -260,46 +305,61 @@ class Model:
         return ([range(i * period, (i + 1) * period) for i in range(n_seg)],
                 range(n_seg * period, n))
 
-    def _hybrid_forward(self, params, x, positions, window, attn_impl):
+    def _hybrid_forward(self, params, x, positions, window, attn_impl,
+                        remat=False):
         cfg = self.cfg
         route = "kernel" if attn_impl == "kernel" else "chunked"
         mamba = _unstack(params["mamba"])
         segments, trailing = self._segments()
+
+        def layer(lp, xx):
+            return constrain_batch(
+                xx + S.mamba2_forward(lp, cfg, xx, ssd_route=route))
+
+        def seg_fn(xx, *seg_layers):
+            for lp in seg_layers:
+                xx = layer(lp, xx)
+            return _block(params["shared_attn"], cfg, xx, positions, None,
+                          None, window, attn_impl)[0]
+        seg_fn = _rematted(seg_fn, remat)
         for seg in segments:
-            for i in seg:
-                x = x + S.mamba2_forward(mamba[i], cfg, x, ssd_route=route)
-            x = _block(params["shared_attn"], cfg, x, positions, None,
-                       None, window, attn_impl)[0]
+            x = seg_fn(x, *(mamba[i] for i in seg))
         for i in trailing:
-            x = x + S.mamba2_forward(mamba[i], cfg, x, ssd_route=route)
+            x = layer(mamba[i], x)
         return x
 
     def _is_slstm(self, i: int) -> bool:
         return i % self.cfg.xlstm.slstm_every == 1
 
-    def _xlstm_forward(self, params, x):
+    def _xlstm_forward(self, params, x, remat=False):
         """Each layer adds its sLSTM or its mLSTM block's output; the
         other block's parameters go unused (zero gradients)."""
         cfg = self.cfg
+
+        def s_layer(ps, xx):
+            return constrain_batch(xx + X.slstm_forward(ps, cfg, xx)[0])
+
+        def m_layer(pm, xx):
+            return constrain_batch(xx + X.mlstm_forward(pm, cfg, xx)[0])
+        s_layer, m_layer = _rematted(s_layer, remat), _rematted(m_layer,
+                                                                remat)
         for i, (pm, ps) in enumerate(zip(_unstack(params["mlstm"]),
                                          _unstack(params["slstm"]))):
-            if self._is_slstm(i):
-                x = x + X.slstm_forward(ps, cfg, x)[0]
-            else:
-                x = x + X.mlstm_forward(pm, cfg, x)[0]
+            x = s_layer(ps, x) if self._is_slstm(i) else m_layer(pm, x)
         return x
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              taps: Optional[torch.Tensor] = None,
              window: Optional[int] = None,
              loss_chunk: int = 1024,
-             attn_impl: str = "chunked") -> Tuple[torch.Tensor, Dict]:
+             attn_impl: str = "chunked",
+             remat: bool = False) -> Tuple[torch.Tensor, Dict]:
         """Token-mean cross-entropy, computed ``loss_chunk`` positions at
         a time so only one chunk's f32 logits are live, plus
         ``router_aux_weight`` times the MoE aux loss (``metrics["aux"]``)
-        where the config has experts."""
+        where the config has experts.  ``remat`` as in ``forward_aux``."""
         h, aux = self.forward_aux(params, batch, taps=taps, window=window,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, remat=remat)
         labels = batch["labels"].long()
         mask = batch.get("loss_mask")
         if mask is None:
@@ -314,13 +374,21 @@ class Model:
             mask = F.pad(mask, (0, pad))
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        head_params = params
+        if self.cfg.tied_embeddings:
+            head_params = {**params,
+                           "embedding": vocab_sharded(params["embedding"])}
         for c in range(0, s + pad, chunk):
-            logits = self.head(params, h[:, c:c + chunk]).to(torch.float32)
-            lse = torch.logsumexp(logits, dim=-1)
-            picked = torch.gather(logits, -1,
-                                  labels[:, c:c + chunk, None])[..., 0]
+            logits = self.head(head_params,
+                               h[:, c:c + chunk]).to(torch.float32)
+            lse = logsumexp(logits)
+            # the difference before the trailing dim goes: gathered from
+            # vocab-sharded DTensor logits, the label's logit is a masked
+            # partial sum, which DTensor reduces here but not once squeezed
+            nll = (lse[..., None] - torch.gather(
+                logits, -1, labels[:, c:c + chunk, None]))[..., 0]
             mm = mask[:, c:c + chunk]
-            tot = tot + torch.sum((lse - picked) * mm)
+            tot = tot + torch.sum(nll * mm)
             cnt = cnt + torch.sum(mm)
         ce = tot / torch.clamp(cnt, min=1.0)
         total = ce

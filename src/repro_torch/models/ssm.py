@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models.activation_sharding import shard_local, split_heads
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -178,10 +179,14 @@ def mamba2_forward(p: Params, cfg: ArchConfig, u: torch.Tensor,
         c = F.pad(c, (0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
     xh = x.reshape(x.shape[0], x.shape[1], h, s.head_dim)
-    if ssd_route == "kernel":
-        y, _ = kops.ssd(xh, dt, a, b, c, chunk, impl="kernel")
-    else:
-        y, _ = ssd_chunked(xh, dt, a, b, c, chunk)
+
+    def scan(xh, dt, a, b, c):
+        if ssd_route == "kernel":
+            return kops.ssd(xh, dt, a, b, c, chunk, impl="kernel")
+        return ssd_chunked(xh, dt, a, b, c, chunk)
+    # local to a batch shard and a head shard on DTensors
+    y, _ = shard_local(scan, (xh, dt, a, b, c), (2, 2, ("m", 0), None, None),
+                       (2, 1), n=h)
     y = y + p["d_skip"][None, None, :, None] * xh.to(torch.float32)
     y = y[:, :seq].reshape(u.shape[0], seq, d_inner).to(u.dtype)
     y = y * F.silu(z)
@@ -221,7 +226,7 @@ def mamba2_decode(p: Params, cfg: ArchConfig, u: torch.Tensor,
     c = bc[:, 0, n:].to(f32)
     dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])[:, 0]      # (B, H)
     a = -torch.exp(p["a_log"])
-    xh = x.reshape(x.shape[0], h, s.head_dim).to(f32)         # (B, H, P)
+    xh = split_heads(x, h, s.head_dim)[:, 0].to(f32)          # (B, H, P)
     # S = exp(dt a) S + dt * B (x outer)
     decay = torch.exp(dt[:, :, None, None] * a[None, :, None, None])
     inject = torch.einsum("bn,bh,bhp->bhnp", b, dt, xh)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.activation_sharding import shard_local, split_heads
 
 Params = Dict[str, Any]
 F32 = torch.float32
@@ -113,16 +114,27 @@ def mlstm_forward(p: Params, cfg: ArchConfig, u: torch.Tensor,
     ph = d_inner // h
     up = u @ p["w_up"]
     xin, z = up[..., :d_inner], up[..., d_inner:]
-    q = (xin @ p["wq"]).reshape(b, s, h, ph)
-    k = (xin @ p["wk"]).reshape(b, s, h, ph)
-    v = (xin @ p["wv"]).reshape(b, s, h, ph)
+    q = split_heads(xin @ p["wq"], h, ph)
+    k = split_heads(xin @ p["wk"], h, ph)
+    v = split_heads(xin @ p["wv"], h, ph)
     x32 = xin.to(F32)
     i_pre = x32 @ p["wi"] + p["bi"]
     f_pre = x32 @ p["wf"] + p["bf"]
     if state is None:
         state = mlstm_init_state(cfg, b, u.device)
-    y, state = _mlstm_scan(q, k, v, i_pre, f_pre, state)
-    y = y.reshape(b, s, d_inner).to(u.dtype) * F.silu(z)
+
+    def scan(q, k, v, i_pre, f_pre, c, n, m):
+        y, st = _mlstm_scan(q, k, v, i_pre, f_pre, {"c": c, "n": n, "m": m})
+        # the heads merged here: DTensor has no view that splits them
+        # again for the backward where they did not shard
+        return (y.reshape(y.shape[0], y.shape[1], -1), st["c"], st["n"],
+                st["m"])
+    # local to a batch shard and a head shard on DTensors
+    y, c, n, m = shard_local(
+        scan, (q, k, v, i_pre, f_pre, state["c"], state["n"], state["m"]),
+        (2, 2, 2, 2, 2, 1, 1, 1), (2, 1, 1, 1), n=h)
+    state = {"c": c, "n": n, "m": m}
+    y = y.to(u.dtype) * F.silu(z)
     y = L.rmsnorm(p["norm"], y, cfg.norm_eps)
     return y @ p["w_down"], state
 
@@ -176,25 +188,34 @@ def slstm_forward(p: Params, cfg: ArchConfig, u: torch.Tensor,
     pre = (u @ p["w_zifo"]).to(F32)
     if state is None:
         state = slstm_init_state(cfg, b, u.device)
-    c, n, hh, m = state["c"], state["n"], state["h"], state["m"]
-    ys = []
-    for t in range(s):
-        rec = torch.einsum("bhp,hpf->bhf", hh.reshape(b, h, ph),
-                           p["r_zifo"]).reshape(b, 4 * d)
-        zifo = pre[:, t] + rec + p["b_zifo"]
-        z_, i_, f_, o_ = torch.split(zifo, d, dim=-1)
-        z = torch.tanh(z_)
-        o = torch.sigmoid(o_)
-        logf = F.logsigmoid(f_)
-        m_new = torch.maximum(logf + m, i_)
-        i_s = torch.exp(i_ - m_new)
-        f_s = torch.exp(logf + m - m_new)
-        c = f_s * c + i_s * z
-        n = f_s * n + i_s
-        hh = o * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        ys.append(hh)
-    y = torch.stack(ys, dim=1).to(u.dtype)
+
+    def scan(pre, r_zifo, b_zifo, c, n, hh, m):
+        bl = pre.shape[0]
+        ys = []
+        for t in range(s):
+            rec = torch.einsum("bhp,hpf->bhf", hh.reshape(bl, h, ph),
+                               r_zifo).reshape(bl, 4 * d)
+            zifo = pre[:, t] + rec + b_zifo
+            z_, i_, f_, o_ = torch.split(zifo, d, dim=-1)
+            z = torch.tanh(z_)
+            o = torch.sigmoid(o_)
+            logf = F.logsigmoid(f_)
+            m_new = torch.maximum(logf + m, i_)
+            i_s = torch.exp(i_ - m_new)
+            f_s = torch.exp(logf + m - m_new)
+            c = f_s * c + i_s * z
+            n = f_s * n + i_s
+            hh = o * c / torch.clamp(n, min=1e-6)
+            m = m_new
+            ys.append(hh)
+        return torch.stack(ys, dim=1), c, n, hh, m
+    # local to a batch shard on DTensors; the gates interleave the heads
+    # within each of z, i, f and o, so every model rank runs them all
+    y, c, n, hh, m = shard_local(
+        scan, (pre, p["r_zifo"], p["b_zifo"], state["c"], state["n"],
+               state["h"], state["m"]),
+        (None, "r", "r", None, None, None, None), (None,) * 5, n=0)
+    y = y.to(u.dtype)
     y = L.rmsnorm(p["norm"], y, cfg.norm_eps)
     out = F.gelu(y @ p["w_ff1"], approximate="tanh") @ p["w_ff2"]
     return out, {"c": c, "n": n, "h": hh, "m": m}

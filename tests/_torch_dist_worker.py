@@ -6,9 +6,10 @@ tests/test_torch_backend_world.py (``run_backends``),
 tests/test_torch_zero1_world.py (``run_zero1``),
 tests/test_torch_hot_swap.py (``run_broadcast``),
 tests/test_torch_trace_world.py (``run_trace``),
-tests/test_torch_tuning_world.py (``run_tuning``) and
-tests/test_torch_library_world.py (``run_library``); it imports torch
-and the port only.
+tests/test_torch_tuning_world.py (``run_tuning``),
+tests/test_torch_library_world.py (``run_library``) and
+tests/test_torch_partitioned_world.py (``run_partitioned``); it imports
+torch and the port only.
 """
 import numpy as np
 import torch
@@ -729,5 +730,81 @@ def run_library(rank: int, world: int, port: int, out_dir: str) -> None:
             results[f"fused/{thr}"] = {"mean": mean, "sum": total,
                                        "calls": comm.calls()}
         torch.save(results, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+#: the partitioned world's archs (reduced) and its batch
+PARTITIONED_ARCHS = ("llama3.2-1b", "transformer-big")
+PARTITIONED_BATCH, PARTITIONED_SEQ = 4, 16
+
+
+def partitioned_inputs(arch: str):
+    """(model, seed-0 CPU params, a numpy-drawn batch) of the reduced
+    ``arch``: the same on every rank and in the test process."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    rng = np.random.default_rng(7)
+    b, s = PARTITIONED_BATCH, PARTITIONED_SEQ
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    if cfg.frontend is not None:
+        batch["frontend"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.frontend.n_embeds, cfg.d_model)).astype(np.float32))
+    return model, params, batch
+
+
+def partitioned_optimizer(model):
+    from repro_torch.optim import noam_schedule
+    return DistributedOptimizer(
+        adamw(noam_schedule(model.cfg.d_model, warmup_steps=10)),
+        exchange=ExchangeConfig(sparse_as_dense=True,
+                                algorithm="proposed_algorithm2"))
+
+
+def run_partitioned(rank: int, world: int, port: int, out_dir: str) -> None:
+    """The partitioned train step of each ``PARTITIONED_ARCHS`` config on
+    a (2, 2) ("data", "model") mesh of a gloo world of 4 (FSDP layouts,
+    remat): rank 0 saves the gathered loss, gradients and updated
+    parameters, and the collectives the step dispatched."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import partitioned as part
+    from repro_torch.launch import sharding as shard_lib
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        spec = mesh_lib.make_mesh((2, 2), ("data", "model"))
+        dmesh = mesh_lib.device_mesh(spec, "cpu")
+        dp = ("data",)
+        results = {}
+        for arch in PARTITIONED_ARCHS:
+            model, params, batch = partitioned_inputs(arch)
+            opt = partitioned_optimizer(model)
+            opt_state = opt.init(params)
+            p_spec = shard_lib.params_shardings(params, spec, fsdp=True)
+            o_spec = shard_lib.params_shardings(opt_state, spec, fsdp=True)
+            b_spec = shard_lib.batch_shardings(batch, spec, dp_axes=dp)
+            dp_params = part.distribute(params, p_spec, spec, dmesh)
+            dp_state = part.distribute(opt_state, o_spec, spec, dmesh)
+            dp_batch = part.distribute(batch, b_spec, spec, dmesh)
+            kw = dict(attn_impl="chunked", loss_chunk=8, remat=True)
+            grads, loss, _ = part.partitioned_grads(model, dp_params,
+                                                    dp_batch, dp, **kw)
+            step = part.make_partitioned_train_step(model, opt, dp, **kw)
+            rec = part.CollectiveRecorder(dmesh)
+            with rec:
+                new_p, new_o, _, metrics = step(dp_params, dp_state, None,
+                                                dp_batch)
+            results[arch] = {
+                "loss": part.gather(loss), "step_loss":
+                part.gather(metrics["loss"]),
+                "grads": part.gather(grads), "params": part.gather(new_p),
+                "mu": part.gather(new_o.mu), "counts": rec.counts,
+                "sharded": sum(any(pl.is_shard() for pl in t.placements)
+                               for t in tree_flatten(dp_params)[0])}
+        if rank == 0:
+            torch.save(results, f"{out_dir}/rank0.pt")
     finally:
         dist.destroy_process_group()

@@ -5,8 +5,9 @@
     decode_32k steps on meta tensors on a (4, 2) mesh, costed under the
     "cpu" profile; the argument and output bytes are the exact per-device
     sums of the layouts, and only the train step has collective bytes
-    (its data-parallel exchange; the model-axis collectives GSPMD would
-    insert are not modelled, so the decode step has none);
+    (its data-parallel exchange: unpartitioned, no model-axis collective
+    is dispatched, so the decode step has none; the partitioned mode is
+    tests/test_torch_partitioned.py's);
   * the prefill step counts the same FLOPs through the attention kernel
     route as through the chunked one (on the CPU and on meta);
   * ``audit_exchange_plan`` in a fake world of 8: the comm layer's
@@ -15,7 +16,7 @@
     identity wire, int8 with error feedback, ``--wire-dtype bf16``,
     sparse_gather and ZeRO-1;
   * the CLI: ``--out``'s keys (the reference's, where they are not
-    XLA's), the XLA-only flags refused by name, ``--tune`` delegated.
+    XLA's), ``--print-hlo`` refused by name, ``--tune`` delegated.
 """
 import json
 
@@ -164,11 +165,11 @@ def test_cli_out_keys(tmp_path, capsys):
                 "hlo_ops", "planned_wire_bytes", "hlo_wire_bytes",
                 "wire_ratio", "schedule", "strategy", "cost_profile"):
         assert key in a, key
-    for argv in (["--audit-exchange", "--audit-mode", "gspmd"],
-                 ["--shape", "train_4k", "--print-hlo"],
-                 ["--shape", "train_4k", "--mode", "gspmd"]):
-        assert dryrun.main(["--arch", "llama3.2-1b"] + argv) == 2
-        assert "not ported" in capsys.readouterr().err
+    # --mode gspmd and --audit-mode gspmd run (tests/test_torch_
+    # partitioned.py); only XLA's HLO printout is refused by name
+    assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
+                        "--print-hlo"]) == 2
+    assert "not ported" in capsys.readouterr().err
 
 
 def test_cli_tune_delegates(monkeypatch):
