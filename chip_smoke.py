@@ -445,62 +445,118 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: sessions of the CUDA-only ``torch.profiler`` a profiled call may take:
+#: on an H100 host a session now and then records no device event at all
+#: (on the run's first profiled call; up to four sessions in a row on one
+#: call, with or without a pause between them) or drops some (31 of a
+#: step's 213 device-to-device copies), and such a session is run again,
+#: each one noted
+PROFILE_TRIES = 4
+
+
+def profile_events(run, what: str, tries: int = PROFILE_TRIES,
+                   accept=bool):
+    """(events, out): the ``key_averages()`` entries with device time of a
+    CUDA-only ``torch.profiler`` session around ``run()``, and what that
+    call returned.  A session whose events ``accept`` refuses (by default:
+    none recorded) is noted and, up to ``tries`` sessions in all, run
+    again (so ``run`` must leave its inputs fit for another call); the
+    last session's are returned if none was accepted."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(tries):
+        out = None      # the last session's output is freed before a retry
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total > 0]
+        if events and accept(events):
+            return events, out
+        got = "an incomplete session" if events else "no device time"
+        print(json.dumps({"note": f"torch.profiler recorded {got} "
+                          f"({what}, session {i + 1} of {tries})"}))
+    return events, out
+
+
+def repeated(fn, iters: int):
+    """A call of ``fn()`` ``iters`` times that keeps none of the results
+    (a call's output may be gigabytes)."""
+    def run():
+        for _ in range(iters):
+            fn()
+    return run
+
+
+def warm_profiler() -> None:
+    """A first profiled session on a small kernel, before any that is
+    read: the first session of a process is the likeliest to come back
+    empty."""
+    x = torch.ones(1 << 20, device="cuda")
+    profile_events(lambda: x.sum(), "warm-up")
+
+
+def idle_share(busy_ms, wall_ms):
+    """The share of ``wall_ms`` the card was idle, given its busy ms (None
+    where that was not measured)."""
+    return None if busy_ms is None else 1 - busy_ms / wall_ms
+
+
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
     """Device time of one ``fn()``: the time of the kernels (and memsets)
     it runs, summed by ``torch.profiler`` over ``iters`` calls; the gaps
-    that host overhead leaves between launches are not counted."""
-    from torch.profiler import ProfilerActivity, profile
+    that host overhead leaves between launches are not counted.  Where no
+    session records device time, CUDA events around ``iters`` calls
+    (which count those gaps too), noted."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages())
-    if total_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return total_us / iters / 1e3
+    events, _ = profile_events(repeated(fn, iters), "device_ms")
+    if not events:
+        print(json.dumps({"note": "device_ms: timed with CUDA events"}))
+        return cuda_ms(fn, iters, warmup=0)
+    return sum(e.device_time_total for e in events) / iters / 1e3
 
 
 def device_ms_cold(fn, iters: int, warmup: int = 1) -> float:
     """Device time of one ``fn()`` (its kernels, memsets and copies, not
     the host's gaps between them) with the 50 MB L2 flushed before each
     call by a 64 MB read, which leaves no dirty line to write back; the
-    flush's own device time, profiled alone, is taken off."""
-    from torch.profiler import ProfilerActivity, profile
+    flush's own device time, profiled alone, is taken off.  Where no
+    session records device time, ``cuda_ms_cold`` (CUDA events around
+    each call, after a flush), noted."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
     def per_call(g):
         for _ in range(warmup):
             g()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                g()
-            torch.cuda.synchronize()
-        return sum(e.device_time_total
-                   for e in prof.key_averages()) / iters / 1e3
+        events, _ = profile_events(repeated(g, iters), "device_ms_cold")
+        return sum(e.device_time_total for e in events) / iters / 1e3 \
+            if events else None
     alone = per_call(flush.max)
-    return per_call(lambda: (flush.max(), fn())) - alone
+    both = per_call(lambda: (flush.max(), fn()))
+    if alone is None or both is None:
+        print(json.dumps({"note": "device_ms_cold: timed with CUDA events"}))
+        return cuda_ms_cold(fn, iters, warmup=0)
+    return both - alone
 
 
-def kernel_device_ms(fn, iters: int = 10) -> dict:
+def has_kernels(*names):
+    """``profile_events``'s ``accept``: a session in which a kernel whose
+    name holds each of ``names`` was recorded."""
+    return lambda events: all(any(n in e.key for e in events)
+                              for n in names)
+
+
+def kernel_device_ms(fn, iters: int = 10, needs=()) -> dict:
     """Device time a call of each kernel ``fn()`` runs, by kernel name,
     with the L2 flushed by a 64 MB read before each call (the flush's
-    own kernel left out)."""
-    from torch.profiler import ProfilerActivity, profile
+    own kernel left out); a session that lacks a kernel named in
+    ``needs`` is profiled again."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.max()
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / iters / 1e3
-            for e in prof.key_averages()
-            if e.device_time_total > 0 and "reduce_kernel" not in e.key}
+    events, _ = profile_events(repeated(lambda: (flush.max(), fn()), iters),
+                               "kernel_device_ms", accept=has_kernels(*needs))
+    return {e.key: e.device_time_total / iters / 1e3 for e in events
+            if "reduce_kernel" not in e.key}
 
 
 class PhaseClock:
@@ -713,7 +769,8 @@ def densify_vocab_cases(D, vals) -> dict:
         if timed:
             t = densify_timing(D, idx, v, vb, width)
             t["kernels_device_ms_l2_flushed"] = kernel_device_ms(
-                lambda: D.densify_kernel(idx, v, (vb, width)))
+                lambda: D.densify_kernel(idx, v, (vb, width)),
+                needs=("group_rows",))
             group = [ms for k, ms in t["kernels_device_ms_l2_flushed"].items()
                      if "group_rows" in k]
             if len(group) != 1:
@@ -1182,7 +1239,9 @@ def phase_int8_wire_kernel(Q, train) -> dict:
         best[order] = min(best.get(order, t), t)
     passes = {next((k for k in ("absmax_kernel", "encode_kernel")
                     if k in name), name[:60]): ms for name, ms in
-              kernel_device_ms(lambda: Q.quantize_ef_kernel(x, r)).items()}
+              kernel_device_ms(lambda: Q.quantize_ef_kernel(x, r),
+                               needs=("absmax_kernel", "encode_kernel")
+                               ).items()}
     decode = {}
     for p, (g, sc) in gathered.items():
         nbytes = (p + 4) * main_n + 4 * p
@@ -2328,8 +2387,10 @@ def step_profile(train, argv, result, base=None) -> dict:
     batch = batch_at(args.steps)
     ex = ExchangeState([s.clone() if isinstance(s, torch.Tensor) else s
                         for s in result["exchange_state"].bucket_states])
+    # one session: the step updates the run's state in place
     return top_device_kernels(
-        lambda: step(result["params"], result["opt_state"], ex, batch))
+        lambda: step(result["params"], result["opt_state"], ex, batch),
+        tries=1)
 
 
 def phase_zero1(train, D, Q, comm, ops) -> dict:
@@ -3302,15 +3363,12 @@ def _pad_rows(args, chunk):
 def ssd_pass_ms(K, main, chunk, iters=3) -> dict:
     """Device time of each of the "sm90" kernel's three passes a call,
     under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
     K.ssd_kernel(*main, chunk)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            K.ssd_kernel(*main, chunk)
-        torch.cuda.synchronize()
+    events, _ = profile_events(
+        repeated(lambda: K.ssd_kernel(*main, chunk), iters), "ssd passes",
+        accept=has_kernels(*(n + "(" for n in SSD_PASSES)))
     out = dict.fromkeys(SSD_PASSES, 0.0)
-    for e in prof.key_averages():
+    for e in events:
         for name in SSD_PASSES:
             if name + "(" in e.key:
                 out[name] += e.device_time_total / iters / 1e3
@@ -4028,18 +4086,16 @@ def phase_init(model):
     return params
 
 
-def top_device_kernels(fn, n: int = 8) -> dict:
-    """One profiled run of ``fn()`` under a CUDA-only ``torch.profiler``:
-    its device busy ms and the ``n`` kernels (or copies) with the most
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+def top_device_kernels(fn, n: int = 8, tries: int = PROFILE_TRIES) -> dict:
+    """One profiled run of ``fn()`` under a CUDA-only ``torch.profiler``
+    (up to ``tries`` runs, as ``profile_events`` takes them: pass 1
+    where a second call of ``fn`` would change what is measured): its
+    device busy ms (None, not measured, where no session records device
+    time) and the ``n`` kernels (or copies) with the most device time."""
+    events, _ = profile_events(repeated(fn, 1), "top_device_kernels", tries)
     events.sort(key=lambda e: -e.device_time_total)
-    return {"device_busy_ms": sum(e.device_time_total for e in events) / 1e3,
+    return {"device_busy_ms": sum(e.device_time_total for e in events) / 1e3
+            if events else None,
             "top": [{"name": e.key[:90], "ms": e.device_time_total / 1e3,
                      "calls": e.count} for e in events[:n]]}
 
@@ -4241,7 +4297,8 @@ def phase_moe_decode(model, params, FA, tag="moe_decode",
                              MOE_NEW, cfg.n_layers, MOE_B, -1),
                          "one_step_ms": one_ms,
                          "device_busy_ms": busy["device_busy_ms"],
-                         "idle_share": 1 - busy["device_busy_ms"] / one_ms,
+                         "idle_share": idle_share(busy["device_busy_ms"],
+                                                 one_ms),
                          "top": busy["top"][:4]}
         launches = FA.flash_attention_kernel.launches
     if launches != 0:
@@ -4412,7 +4469,7 @@ def phase_mla_prefill(model, params, FA) -> dict:
                 cfg.mla.nope_dim + cfg.mla.rope_dim,
             "v_head_dim": cfg.mla.v_dim, "flash_launches": launches,
             "ms": ms, "tok_per_s": PREFILL_LEN / ms * 1e3,
-            "idle_share": 1 - profiled["device_busy_ms"] / ms,
+            "idle_share": idle_share(profiled["device_busy_ms"], ms),
             "max_memory_allocated": peak, "profiled": profiled,
             f"kernel_bitwise_chunked_{CHECK_LEN}": same}
     print(json.dumps(line))
@@ -4552,7 +4609,8 @@ def phase_xlstm_prefill(model, params) -> dict:
             "logits_vs_f32": logits_diff("xlstm prefill", logits, logits32),
             "hidden_vs_f32": logits_diff("xlstm prefill", h, h32),
             "profiled_tokens": XLSTM_PROFILED, "profiled_wall_ms": short_ms,
-            "idle_share": 1 - profiled["device_busy_ms"] / short_ms,
+            "idle_share": idle_share(profiled["device_busy_ms"],
+                                     short_ms),
             "profiled": profiled}
     print(json.dumps(line))
     return line
@@ -4627,7 +4685,7 @@ def phase_xlstm_decode(model, params) -> dict:
             "prefix": MOE_PREFIX, "new_tokens": MOE_NEW, "prefill_ms": pre_ms,
             "decode_ms_per_step": step_ms, "one_step_ms": one_ms,
             "device_busy_ms": busy["device_busy_ms"],
-            "idle_share": 1 - busy["device_busy_ms"] / one_ms,
+            "idle_share": idle_share(busy["device_busy_ms"], one_ms),
             "top": busy["top"][:4],
             "f32_decode_vs_forward": {
                 f"depth_{XLSTM_CHECK_DEPTH}": diffs[XLSTM_CHECK_DEPTH],
@@ -4830,25 +4888,16 @@ def serving_requests(Request, vocab: int, n: int, lens, max_new: int,
 
 def serving_device_ms(fn, iters: int):
     """(ms, clock): the device time of one ``fn()`` as ``device_ms``
-    takes it (the CUDA-only profiler, tried twice), or, where the
-    profiler records no device time (as happened once late in a whole
-    run), CUDA events around ``iters`` calls, which count the host's
-    gaps between launches too: the parts of a host-bound step need the
-    profiler's device time."""
-    from torch.profiler import ProfilerActivity, profile
+    takes it (the CUDA-only profiler, up to ``PROFILE_TRIES`` sessions),
+    or, where no session records device time, CUDA events around
+    ``iters`` calls, which count the host's gaps between launches too:
+    the parts of a host-bound step need the profiler's device time."""
     fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages())
-        if us > 0:
-            return us / iters / 1e3, "profiler"
-    print(json.dumps({"note": "torch.profiler recorded no device time: "
-                      "timed with CUDA events"}))
-    return cuda_ms(fn, iters, warmup=1), "cuda events"
+    events, _ = profile_events(repeated(fn, iters), "serving step part")
+    if events:
+        return (sum(e.device_time_total for e in events) / iters / 1e3,
+                "profiler")
+    return cuda_ms(fn, iters, warmup=0), "cuda events"
 
 
 def swap_timing(Q, rec) -> dict:
@@ -4948,8 +4997,9 @@ def phase_serving(Q, ops) -> dict:
         while True:
             if busy is None and seen["parts"] is not None and seen["mixed"]:
                 res = {}
+                # one session: a step moves the batcher on
                 busy = top_device_kernels(
-                    lambda: res.setdefault("more", cb.step(done)))
+                    lambda: res.setdefault("more", cb.step(done)), tries=1)
                 more = res["more"]
             else:
                 more, ms = timed(lambda: cb.step(done))
@@ -5263,13 +5313,12 @@ TELEMETRY_ARGV = FULL_WIDTH + ["--grad-accum", "dense_reduce", "--codec",
 TELEMETRY_PAIRS = 5
 
 
-def kernel_counts(prof, skip) -> dict:
+def kernel_counts(events, skip) -> dict:
     """Device events of a ``torch.profiler`` run by name, with their
     counts, leaving out the names in ``skip`` (the traced step's
     ``record_function`` ranges, which the profiler lists on the device
     timeline beside the kernels)."""
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_time_total > 0 and e.key not in skip}
+    return {e.key: e.count for e in events if e.key not in skip}
 
 
 def phase_telemetry(train, D, Q, comm) -> dict:
@@ -5278,7 +5327,6 @@ def phase_telemetry(train, D, Q, comm) -> dict:
     one from the same state.  Returns the kernels' launches in the
     launcher's run."""
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_model
     from repro_torch.telemetry import hooks, report
     from repro_torch.telemetry import trace as trace_lib
@@ -5337,37 +5385,49 @@ def phase_telemetry(train, D, Q, comm) -> dict:
         # steps must not differ by
         step(*trace_lib.copy_tensors(state))
         tracer = trace_lib.StepTracer()
-        runs = {}
-        for tag, fn in (("untraced", lambda: step(*trace_lib.copy_tensors(
-                            state))),
-                        ("traced", lambda: tracer.capture(step, *state,
-                                                          warmup=False))):
-            torch.cuda.synchronize()
-            reset_counts(D, Q, comm)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = fn()
-                torch.cuda.synchronize()
-            counts = read_counts(D, Q, comm)
-            check_counts(f"telemetry {tag} step", counts, plan, 1)
-            kernels = kernel_counts(prof, set(names))
-            runs[tag] = {"state": train_state(*out[:3]), "counts": counts,
-                         "kernels": kernels,
-                         "busy_ms": sum(e.device_time_total for e in
-                                        prof.key_averages() if e.key in
-                                        kernels) / 1e3}
-            del out
+        # both steps run on copies of ``state``, so a pair can be profiled
+        # again: the profiler drops records now and then, so a pair whose
+        # kernel counts differ is, and a difference that holds in
+        # PROFILE_TRIES pairs fails; the counts are the last session's
+        for pair in range(1, PROFILE_TRIES + 1):
+            runs = {}
+            for tag, fn in (("untraced", lambda: step(
+                                *trace_lib.copy_tensors(state))),
+                            ("traced", lambda: tracer.capture(
+                                step, *state, warmup=False))):
+                events, out = profile_events(
+                    lambda: (reset_counts(D, Q, comm), fn())[1],
+                    f"telemetry {tag} step")
+                if not events:
+                    fail(f"telemetry: torch.profiler recorded no device "
+                         f"time in {PROFILE_TRIES} sessions of the {tag} "
+                         f"step")
+                counts = read_counts(D, Q, comm)
+                check_counts(f"telemetry {tag} step", counts, plan, 1)
+                kernels = kernel_counts(events, set(names))
+                runs[tag] = {"state": train_state(*out[:3]),
+                             "counts": counts, "kernels": kernels,
+                             "busy_ms": sum(e.device_time_total
+                                            for e in events
+                                            if e.key in kernels) / 1e3}
+                del out
+            ku, kt = runs["untraced"]["kernels"], runs["traced"]["kernels"]
+            if ku == kt:
+                break
+            diff = {k: (ku.get(k), kt.get(k)) for k in set(ku) | set(kt)
+                    if ku.get(k) != kt.get(k)}
+            print(json.dumps({"note": f"telemetry: the steps' kernel counts "
+                              f"differ under the profiler (pair {pair} of "
+                              f"{PROFILE_TRIES}): {diff}"}))
+        else:
+            fail(f"telemetry: the traced step launches other kernels: "
+                 f"{diff}")
         if hooks.tracer() is not None or hooks.wire_recorder() is not None:
             fail("telemetry: a hook was left installed")
         bad = differing(runs["traced"]["state"], runs["untraced"]["state"])
         if bad:
             fail(f"telemetry: the traced step differs bitwise in tensors "
                  f"{bad[:10]}")
-        ku, kt = runs["untraced"]["kernels"], runs["traced"]["kernels"]
-        if ku != kt:
-            diff = {k: (ku.get(k), kt.get(k)) for k in set(ku) | set(kt)
-                    if ku.get(k) != kt.get(k)}
-            fail(f"telemetry: the traced step launches other kernels: "
-                 f"{diff}")
         traced_step_us = (tracer.step_marks[-1]["t_end"]
                           - tracer.step_marks[-1]["t_start"]) * 1e6
 
@@ -5408,6 +5468,7 @@ def phase_telemetry(train, D, Q, comm) -> dict:
             "untraced_wall_ms": walls["untraced"],
             "traced_wall_ms": walls["traced"],
             "traced_minus_untraced_wall_ms_median": wall_t - wall_u,
+            "profiled_pairs": pair,
             "untraced_device_busy_ms": runs["untraced"]["busy_ms"],
             "traced_device_busy_ms": runs["traced"]["busy_ms"]}
     print(json.dumps(line))
@@ -6152,6 +6213,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
+    warm_profiler()
     clock = PhaseClock()
     clock("build", phase_build, build)
     tokens = make_pipeline(get_config("transformer-big"), 8, 256

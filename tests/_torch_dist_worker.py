@@ -7,13 +7,20 @@ tests/test_torch_zero1_world.py (``run_zero1``),
 tests/test_torch_hot_swap.py (``run_broadcast``),
 tests/test_torch_trace_world.py (``run_trace``),
 tests/test_torch_tuning_world.py (``run_tuning``),
-tests/test_torch_library_world.py (``run_library``) and
-tests/test_torch_partitioned_world.py (``run_partitioned``); it imports
-torch and the port only.
+tests/test_torch_library_world.py (``run_library``),
+tests/test_torch_partitioned_world.py (``run_partitioned``) and
+tests/test_torch_world.py (``run_identity``, ``run_disagree``,
+``run_one_rank_fails``); it imports torch, the port and ``_torch_world``
+only.  Every worker is spawned by ``_torch_world.World`` and calls
+``_torch_world.join`` first (the world's private rendezvous and its
+identity check); results that must be equal on every rank go through
+``_torch_world.check_same``.
 """
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from _torch_world import Rendezvous, check_same, gather_nonces, join
 
 from repro_torch.configs import get_config
 from repro_torch.core import DistributedOptimizer, ExchangeConfig
@@ -52,9 +59,8 @@ def worker_grads(rank: int, exchange: int = 0):
     }
 
 
-def run(rank: int, world: int, port: int, out_dir: str) -> None:
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+def run(rank: int, world: int, rdv: Rendezvous, out_dir: str) -> None:
+    join(rank, world, rdv)
     try:
         g = worker_grads(rank)
         results = {}
@@ -69,6 +75,7 @@ def run(rank: int, world: int, port: int, out_dir: str) -> None:
                                        group=dist.group.WORLD).exchange(g)[0]
             local = DistributedOptimizer(adamw(1e-3), exchange=cfg,
                                          group=None).exchange(g)[0]
+            check_same(f"{name}/avg", flat_tensors(avg))
             for key, tree in (("avg", avg), ("local", local)):
                 results[f"{name}/{key}/embedding"] = tree["embedding"]
                 results[f"{name}/{key}/w"] = tree["layers"]["w"]
@@ -81,6 +88,7 @@ def run(rank: int, world: int, port: int, out_dir: str) -> None:
             for k in range(2):
                 tree, state = opt.exchange(worker_grads(rank, k),
                                            state=state)
+                check_same(f"{name}/{k}", flat_tensors(tree))
                 results[f"{name}/{k}/embedding"] = tree["embedding"]
                 results[f"{name}/{k}/w"] = tree["layers"]["w"]
                 results[f"{name}/{k}/b"] = tree["layers"]["b"]
@@ -93,13 +101,12 @@ def run(rank: int, world: int, port: int, out_dir: str) -> None:
 OVERLAPS = (False, "staged", "backward")
 
 
-def run_overlap(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_overlap(rank: int, world: int, rdv: Rendezvous, out_dir: str) -> None:
     """Per overlap mode and wire (identity, int8+ef): two training steps
     of the reduced transformer-big, and one loss-scaled step at M = 2;
     every rank saves its final parameters, Adam moments and residuals."""
     torch.set_num_threads(2)         # two ranks share the host's cores
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         cfg = get_config("transformer-big").reduced()
         model = build_model(cfg)
@@ -111,6 +118,9 @@ def run_overlap(rank: int, world: int, port: int, out_dir: str) -> None:
                 for k, v in pipe.batch_at(step).items()}
 
         def record(tag, params, opt_state, ex_state):
+            check_same(tag, tree_flatten(params)[0]
+                       + tree_flatten(opt_state.mu)[0]
+                       + tree_flatten(opt_state.nu)[0])
             results[f"{tag}/params"] = tree_flatten(params)[0]
             results[f"{tag}/mu"] = tree_flatten(opt_state.mu)[0]
             results[f"{tag}/nu"] = tree_flatten(opt_state.nu)[0]
@@ -197,7 +207,7 @@ def ring_input(rank: int, scale: float = 1.0) -> torch.Tensor:
         (rng.standard_normal(RING_ELEMS) * scale).astype(np.float32))
 
 
-def run_backends(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_backends(rank: int, world: int, rdv: Rendezvous, out_dir: str) -> None:
     """Every backend over a gloo world: two exchanges in a row of each
     ``BACKEND_CONFIGS`` entry (``WORLD8_CONFIGS`` at a world of 8), with
     the comm layer's call counters and the plan's count, and each int8
@@ -207,8 +217,7 @@ def run_backends(rank: int, world: int, port: int, out_dir: str) -> None:
     from repro_torch.core import backend, codecs, comm
     from repro_torch.launch.train import pod_groups
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         pods = pod_groups(rank, world)
         world_group = dist.group.WORLD
@@ -247,6 +256,7 @@ def run_backends(rank: int, world: int, port: int, out_dir: str) -> None:
                 results[f"{name}/{k}/plan_calls"] = opt.plan(
                     g).hlo_collectives(levels_for(be))
                 results[f"{name}/{k}/hops"] = list(hops)
+                check_same(f"{name}/{k}", flat_tensors(tree))
                 results[f"{name}/{k}/embedding"] = tree["embedding"]
                 results[f"{name}/{k}/w"] = tree["layers"]["w"]
                 results[f"{name}/{k}/b"] = tree["layers"]["b"]
@@ -302,6 +312,9 @@ def _backend_steps(rank, world, groups_for, results) -> None:
                 params, opt_state, ex, _ = step(params, opt.init(params),
                                                 ex, batch)
                 tag = f"step/{be}/{codec}/{overlap}"
+                check_same(tag, tree_flatten(params)[0]
+                           + tree_flatten(opt_state.mu)[0]
+                           + tree_flatten(opt_state.nu)[0])
                 results[f"{tag}/state"] = (
                     tree_flatten(params)[0] + tree_flatten(opt_state.mu)[0]
                     + tree_flatten(opt_state.nu)[0]
@@ -334,7 +347,7 @@ def zero1_inputs(path: str):
         return {k: d[k] for k in d.files}
 
 
-def run_zero1(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_zero1(rank: int, world: int, rdv: Rendezvous, out_dir: str) -> None:
     """ZeRO-1 over a gloo world: for each ``ZERO1_CONFIGS`` entry,
     ``ZERO1_STEPS`` zero1 steps and as many replicated exchange + update
     steps on the same fixed per-rank gradients (the local state's bytes,
@@ -348,8 +361,7 @@ def run_zero1(rank: int, world: int, port: int, out_dir: str) -> None:
     from repro_torch.optim import apply_updates
     from repro_torch.optim import zero1 as z1
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         data = zero1_inputs(f"{out_dir}/inputs.npz")
         group = dist.group.WORLD
@@ -384,6 +396,7 @@ def run_zero1(rank: int, world: int, port: int, out_dir: str) -> None:
                 calls.append(sum(comm.calls().values()))
             results[f"{name}/calls"] = calls
             results[f"{name}/plan_calls"] = plan.hlo_collectives(world)
+            check_same(f"{name}/zero1", tree_flatten(params)[0])
             results[f"{name}/zero1"] = tree_flatten(params)[0]
             results[f"{name}/zero1_slots"] = [list(s) for s in z.opt_slots]
             ropt = DistributedOptimizer(base, exchange=ExchangeConfig(
@@ -395,6 +408,7 @@ def run_zero1(rank: int, world: int, port: int, out_dir: str) -> None:
                 dense, ex = ropt.exchange(g, state=ex)
                 upd, state = base.update(dense, state, params)
                 params = apply_updates(params, upd)
+            check_same(f"{name}/replicated", tree_flatten(params)[0])
             results[f"{name}/replicated"] = tree_flatten(params)[0]
             results[f"{name}/replicated_mu"] = [
                 c.narrow(0, rank * s[0].shape[0], s[0].shape[0])
@@ -438,14 +452,14 @@ def run_zero1(rank: int, world: int, port: int, out_dir: str) -> None:
 BROADCAST_CODECS = ("identity", "int8")
 
 
-def run_broadcast(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_broadcast(rank: int, world: int, rdv: Rendezvous,
+                  out_dir: str) -> None:
     """Every rank draws its own reduced llama3.2-1b weights (seed =
     rank) and receives rank 0's through the broadcast plan, a
     ``HotSwapStream`` and ``DistributedOptimizer.broadcast``."""
     from repro_torch.serving import HotSwapStream, broadcast_plan
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         model = build_model(get_config("llama3.2-1b").reduced())
         params = model.init(seed=rank, device="cpu")
@@ -465,6 +479,9 @@ def run_broadcast(rank: int, world: int, port: int, out_dir: str) -> None:
                 group=group)
             results[f"{codec}/optimizer"] = tree_flatten(
                 opt.broadcast(params, root=0))[0]
+            check_same(codec, results[f"{codec}/plan"]
+                       + results[f"{codec}/stream"]
+                       + results[f"{codec}/optimizer"])
         torch.save(results, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -520,7 +537,7 @@ def bitwise(a, b) -> bool:
         for x, y in zip(ta, tb))
 
 
-def run_trace(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_trace(rank: int, world: int, rdv: Rendezvous, out_dir: str) -> None:
     """Per ``TRACE_CASES`` entry over a gloo world: ``measure_wire``'s
     per-stage bytes beside the plan's, the caller's tensors before and
     after it, the comm counters of an untraced exchange, a traced run
@@ -530,8 +547,7 @@ def run_trace(rank: int, world: int, port: int, out_dir: str) -> None:
     from repro_torch.launch.train import pod_groups
     from repro_torch.telemetry import hooks, report, trace
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         pods = pod_groups(rank, world)
         results = {}
@@ -578,6 +594,7 @@ def run_trace(rank: int, world: int, port: int, out_dir: str) -> None:
             comm.reset_calls()
             plain = fn(*trace.copy_tensors(args))
             r["calls"] = comm.calls()
+            check_same(name, flat_tensors(plain[0]))
             r["plan_calls"] = plan.hlo_collectives(levels)
             r["hooks_off"] = (hooks.wire_recorder() is None
                               and hooks.tracer() is None)
@@ -628,7 +645,7 @@ def config_flags(cfg) -> list:
     return flags
 
 
-def run_tuning(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_tuning(rank: int, world: int, rdv: Rendezvous, out_dir: str) -> None:
     """The measured search on the reduced transformer-big in the world
     (every rank's table and winner), then ``launch.tune`` (analytic) into
     ``out_dir/cache`` and ``launch.train --tuned`` from it beside the
@@ -639,8 +656,7 @@ def run_tuning(rank: int, world: int, port: int, out_dir: str) -> None:
     from repro_torch.launch import train, tune
     from repro_torch.tuning import config_from_dict, search
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         _, grads, model, params, batch = tune.audit_grads(
             "transformer-big", True, 2, 32, torch.device("cpu"))
@@ -662,6 +678,7 @@ def run_tuning(rank: int, world: int, port: int, out_dir: str) -> None:
             lines, err = [], io.StringIO()
             with contextlib.redirect_stderr(err):
                 result = train.run(TUNING_TRAIN + extra, log=lines.append)
+            check_same(f"runs/{tag}", tree_flatten(result["params"])[0])
             runs[tag] = {"log": lines, "stderr": err.getvalue(),
                          "losses": [h["loss"] for h in result["history"]],
                          "params": tree_flatten(result["params"])[0]}
@@ -694,7 +711,7 @@ def library_tree(rank: int) -> dict:
     return {"a": t(32, 16), "b": t(7), "c": {"d": t(64, 32), "e": t(3, 5)}}
 
 
-def run_library(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_library(rank: int, world: int, rdv: Rendezvous, out_dir: str) -> None:
     """``comm.all_gather_slices`` over the world and over a two-level
     tuple of it, each under a ``WireRecorder``, with its collective
     calls; ``fusion.fused_all_reduce`` (mean and sum) at
@@ -702,8 +719,7 @@ def run_library(rank: int, world: int, port: int, out_dir: str) -> None:
     from repro_torch.core import comm, fusion
     from repro_torch.telemetry import hooks
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         g = dist.group.WORLD
         results = {}
@@ -718,6 +734,7 @@ def run_library(rank: int, world: int, port: int, out_dir: str) -> None:
                             library_slices(rank, dtype), group)
                 finally:
                     hooks.clear_wire_recorder()
+                check_same(f"{name}/{dtype}", [out.indices, out.values])
                 results[f"{name}/{dtype}"] = {
                     "indices": out.indices, "values": out.values,
                     "dense_shape": out.dense_shape, "wire": rec.as_dict(),
@@ -727,6 +744,8 @@ def run_library(rank: int, world: int, port: int, out_dir: str) -> None:
             mean = fusion.fused_all_reduce(library_tree(rank), g, thr)
             total = fusion.fused_all_reduce(library_tree(rank), g, thr,
                                             average=False)
+            check_same(f"fused/{thr}",
+                       flat_tensors(mean) + flat_tensors(total))
             results[f"fused/{thr}"] = {"mean": mean, "sum": total,
                                        "calls": comm.calls()}
         torch.save(results, f"{out_dir}/rank{rank}.pt")
@@ -763,7 +782,8 @@ def partitioned_optimizer(model):
                                 algorithm="proposed_algorithm2"))
 
 
-def run_partitioned(rank: int, world: int, port: int, out_dir: str) -> None:
+def run_partitioned(rank: int, world: int, rdv: Rendezvous,
+                    out_dir: str) -> None:
     """The partitioned train step of each ``PARTITIONED_ARCHS`` config on
     a (2, 2) ("data", "model") mesh of a gloo world of 4 (FSDP layouts,
     remat): rank 0 saves the gathered loss, gradients and updated
@@ -772,8 +792,7 @@ def run_partitioned(rank: int, world: int, port: int, out_dir: str) -> None:
     from repro_torch.launch import partitioned as part
     from repro_torch.launch import sharding as shard_lib
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
+    join(rank, world, rdv)
     try:
         spec = mesh_lib.make_mesh((2, 2), ("data", "model"))
         dmesh = mesh_lib.device_mesh(spec, "cpu")
@@ -804,7 +823,43 @@ def run_partitioned(rank: int, world: int, port: int, out_dir: str) -> None:
                 "mu": part.gather(new_o.mu), "counts": rec.counts,
                 "sharded": sum(any(pl.is_shard() for pl in t.placements)
                                for t in tree_flatten(dp_params)[0])}
+            check_same(arch, tree_flatten(results[arch]["grads"])[0]
+                       + tree_flatten(results[arch]["params"])[0])
         if rank == 0:
             torch.save(results, f"{out_dir}/rank0.pt")
     finally:
         dist.destroy_process_group()
+
+
+def run_identity(rank: int, world: int, rdv: Rendezvous,
+                 out_dir: str) -> None:
+    """Join the world (its identity check included) and save every rank's
+    nonce as this rank gathered it, beside the world's own."""
+    join(rank, world, rdv)
+    try:
+        torch.save({"nonce": rdv.nonce, "seen": gather_nonces(rdv.nonce)},
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_disagree(rank: int, world: int, rdv: Rendezvous,
+                 out_dir: str) -> None:
+    """Join, then hand ``check_same`` a tensor that differs by rank: every
+    rank raises, naming the tag."""
+    join(rank, world, rdv)
+    try:
+        check_same("rank-dependent", [torch.tensor([rank])])
+    finally:
+        dist.destroy_process_group()
+
+
+def run_one_rank_fails(rank: int, world: int, rdv: Rendezvous,
+                       out_dir: str) -> None:
+    """Join; the last rank then raises and the others sleep (a world
+    that would hang until its deadline)."""
+    import time
+    join(rank, world, rdv)
+    if rank == world - 1:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    time.sleep(600)

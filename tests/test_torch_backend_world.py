@@ -19,8 +19,6 @@ against the reference:
   * staged and wait-free steps bitwise equal to the fused step on every
     backend (the reduced transformer-big, identity and int8+ef).
 """
-import socket
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -37,6 +35,7 @@ from repro.optim import adamw as jadamw                        # noqa: E402
 from repro_torch.core.indexed_slices import IndexedSlices as TSlices  # noqa: E402
 
 import _torch_dist_worker as W                                  # noqa: E402
+from _torch_world import spawn_world                             # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -44,26 +43,8 @@ LEAVES = ("embedding", "w", "b")
 F8 = {"f8e4m3": jnp.float8_e4m3fn, "f8e5m2": jnp.float8_e5m2}
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(world: int, out):
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_backends, args=(r, world, port,
-                                                      str(out)))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(W.run_backends, world, out, timeout=240)
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
 

@@ -9,8 +9,6 @@
   * averaging over a gloo world of 2 started by torch.multiprocessing,
     for the identity wire and for int8 with and without error feedback.
 """
-import socket
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -40,6 +38,7 @@ from repro_torch.training.gradients import grad_contributions    # noqa: E402
 from repro_torch.tree import tree_flatten                       # noqa: E402
 
 import _torch_dist_worker                                       # noqa: E402
+from _torch_world import spawn_world                             # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -194,28 +193,11 @@ def test_local_exchange_matches_reference(reduced_grads, name, threshold):
                                    atol=1e-5)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def gloo_world_of_two(tmp_path_factory):
     """Both ranks' exchange results from one gloo world of 2."""
     out = tmp_path_factory.mktemp("gloo2")
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_torch_dist_worker.run,
-                         args=(r, 2, port, str(out))) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=120)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(_torch_dist_worker.run, 2, out, timeout=120)
     return [torch.load(out / f"rank{r}.pt") for r in range(2)]
 
 

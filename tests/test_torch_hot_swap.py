@@ -12,8 +12,6 @@ by ``1 / scale`` as the port does), and within one quantum a leaf of the
 reference's default plan (``use_kernel=False``), whose encode divides by
 the scale.
 """
-import socket
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -23,6 +21,7 @@ import jax.numpy as jnp                       # noqa: E402
 import numpy as np                            # noqa: E402
 
 import _torch_dist_worker                     # noqa: E402
+from _torch_world import spawn_world           # noqa: E402
 from repro.core import (DistributedOptimizer as JDistOpt,    # noqa: E402
                         ExchangeConfig as JExchangeConfig,
                         compile_plan as jcompile_plan)
@@ -291,30 +290,13 @@ def test_distributed_optimizer_broadcast(trees, codec):
     _bitwise(got, jopt.broadcast(_jax(new)))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_gloo_world_of_two_lands_rank0_params_on_rank1(tmp_path, trees):
     """Each rank holds its own weights (seed = rank); after the broadcast
     from rank 0 both hold rank 0's, through the plan (identity: bitwise
     rank 0's; int8: bitwise rank 0's local round trip), through a
     ``HotSwapStream`` and through ``DistributedOptimizer.broadcast``."""
     model, old, _ = trees
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_torch_dist_worker.run_broadcast,
-                         args=(r, 2, port, str(tmp_path))) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(_torch_dist_worker.run_broadcast, 2, tmp_path, timeout=240)
     res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
     t0 = _torch(old)                         # rank 0's weights (seed 0)
     for codec in _torch_dist_worker.BROADCAST_CODECS:

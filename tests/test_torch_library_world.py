@@ -12,7 +12,6 @@ world of 2 (``tests/_torch_dist_worker.py::run_library``, spawned once):
     the two ranks' trees within f32 rounding, with one allreduce per
     fusion bucket (``collective_launches``, the reference's count).
 """
-import socket
 
 import pytest
 
@@ -26,32 +25,15 @@ from repro_torch.core import fusion                            # noqa: E402
 from repro_torch.tree import tree_flatten                      # noqa: E402
 
 import _torch_dist_worker as W                                 # noqa: E402
+from _torch_world import spawn_world                           # noqa: E402
 
 WORLD = 2
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     out = tmp_path_factory.mktemp("library_world")
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_library,
-                         args=(r, WORLD, port, str(out)))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(W.run_library, WORLD, out, timeout=240)
     return [torch.load(out / f"rank{r}.pt") for r in range(WORLD)]
 
 

@@ -25,7 +25,6 @@ Every other comparison here is bitwise: both paths run the same
 per-stage ops on the same gradients.
 """
 import gc
-import socket
 
 import pytest
 
@@ -37,6 +36,7 @@ import numpy as np                            # noqa: E402
 import torch.distributed as dist              # noqa: E402
 
 import _torch_dist_worker                     # noqa: E402
+from _torch_world import spawn_world           # noqa: E402
 from repro.configs import get_config as jget_config          # noqa: E402
 from repro.core import (DistributedOptimizer as JDistOpt,    # noqa: E402
                         ExchangeConfig as JExchangeConfig)
@@ -274,25 +274,8 @@ def test_launcher_overlap_is_bitwise_fused(codec):
     assert train.parse_args(argv).overlap is None
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_gloo_world_of_two_overlap_is_bitwise_fused(tmp_path):
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_torch_dist_worker.run_overlap,
-                         args=(r, 2, port, str(tmp_path))) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(_torch_dist_worker.run_overlap, 2, tmp_path, timeout=240)
     res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
     for prefix in ("", "scaled/"):
         for codec in ("identity", "int8+ef"):

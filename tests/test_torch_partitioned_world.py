@@ -15,7 +15,6 @@ the update is lr * g / (|g| + eps), which turns the sign of a gradient
 within rounding of zero, so there the two steps may part by at most
 2 lr.  Collectives cross both mesh dims.
 """
-import socket
 
 import pytest
 
@@ -33,6 +32,7 @@ from repro_torch.training import (grad_contributions,           # noqa: E402
 from repro_torch.tree import tree_flatten                       # noqa: E402
 
 import _torch_dist_worker as W                                 # noqa: E402
+from _torch_world import spawn_world                           # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -41,28 +41,10 @@ KW = dict(attn_impl="chunked", loss_chunk=8, remat=True)
 TOL = dict(atol=1e-6, rtol=1e-5)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     out = tmp_path_factory.mktemp("partitioned_world")
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_partitioned,
-                         args=(r, WORLD, port, str(out)))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(W.run_partitioned, WORLD, out, timeout=240)
     return torch.load(out / "rank0.pt")
 
 

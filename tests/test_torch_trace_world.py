@@ -16,13 +16,13 @@
     every stage has all four phases, ``n_workers_traced == 4`` and
     ``wire_exact``.
 """
-import socket
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import _torch_dist_worker as W                                 # noqa: E402
+from _torch_world import spawn_world                           # noqa: E402
 from repro_torch.telemetry import hooks                        # noqa: E402
 from repro_torch.telemetry.trace import PHASES                 # noqa: E402
 
@@ -30,27 +30,10 @@ WORLD = 4
 KINDS = {"all-reduce", "reduce-scatter", "all-gather", "collective-permute"}
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("trace4")
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_trace, args=(r, WORLD, port, str(out)))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(W.run_trace, WORLD, out, timeout=240)
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(WORLD)]
 

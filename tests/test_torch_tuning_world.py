@@ -12,38 +12,21 @@
     follow the winner's backend.
 """
 import math
-import socket
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import _torch_dist_worker as W                                 # noqa: E402
+from _torch_world import spawn_world                           # noqa: E402
 
 WORLD = 4
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("tuning4")
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_tuning, args=(r, WORLD, port, str(out)))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(W.run_tuning, WORLD, out, timeout=240)
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(WORLD)]
 

@@ -18,7 +18,6 @@ and the reference's 4-device ``shard_map`` run:
     4 uninterrupted steps.
 """
 import os
-import socket
 import subprocess
 import sys
 
@@ -32,6 +31,7 @@ from repro_torch.checkpoint import restore_checkpoint          # noqa: E402
 from repro_torch.checkpoint.checkpoint import flatten_with_paths  # noqa: E402
 
 import _torch_dist_worker as W                                  # noqa: E402
+from _torch_world import spawn_world                            # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
@@ -79,12 +79,6 @@ print("OK")
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The ranks' results and the reference's files: the reference's
@@ -103,18 +97,7 @@ def world(tmp_path_factory):
         [sys.executable, "-c", REFERENCE, str(out),
          repr(W.ZERO1_REFERENCE)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_zero1, args=(r, WORLD, port, str(out)))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        assert p.exitcode == 0
+    spawn_world(W.run_zero1, WORLD, out, timeout=240)
     stdout, stderr = ref.communicate(timeout=240)
     assert ref.returncode == 0, stderr[-4000:]
     assert "OK" in stdout
