@@ -279,9 +279,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                in bf16 with its relative L2 against f32; ``xlstm_decode``
                (8 requests, 16 greedy steps; f32 decode against the f32
                forward at 2e-4); ``xlstm_serve``; ``xlstm_f32`` (card
-               against CPU, 256 tokens); ``xlstm_path`` (the launcher at
-               2 x 256 tokens a step, 1 step of dense_reduce and 1 of
-               sparse_gather, densify once a step at 50304 x 768); and
+               against CPU from the card's draws, 256 tokens);
+               ``xlstm_path`` (the launcher at 2 x 256 tokens a step, 1
+               step of dense_reduce and 1 of sparse_gather, densify once
+               a step at 50304 x 768); and
                ``small_xlstm`` (reduced, card against CPU, forward,
                decode and 2 launcher steps).
  13. serving — llama3.2-1b at full width in bf16 (1,235,814,400
@@ -384,10 +385,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                (``launch/partitioned.py``): the launcher's full-width
                transformer-big dense_reduce step (a world of 1 over NCCL,
                densify launched once a step) with and without remat from
-               the same host-drawn weights, and full-width llama3.2-1b at
-               the dense path's shape (card-drawn weights, shared by both
-               runs): loss and every updated parameter bitwise (or the
-               leaves that differ listed and held at ``PATH_TOL``), each
+               the same weights, and full-width llama3.2-1b at the dense
+               path's shape (each drawn on the card): loss and every
+               updated parameter bitwise (or the leaves that differ
+               listed and held at ``PATH_TOL``), each
                run's ``max_memory_allocated``; on a (1, 1) mesh of DTensors
                the 32768-token transformer-big prefill through
                ``attn_impl="kernel"`` (12 "sm90" launches inside
@@ -4698,9 +4699,9 @@ def phase_xlstm_decode(model, params) -> dict:
 
 
 def phase_xlstm_f32() -> dict:
-    """Full-width xlstm-125m in f32 from the CPU's draws, on the card and
-    on the CPU: every position's logits of an ``XLSTM_F32_LEN``-token
-    forward, within
+    """Full-width xlstm-125m in f32 from the card's draws (the CPU's
+    host-independent draw is serial), on the card and on the CPU: every
+    position's logits of an ``XLSTM_F32_LEN``-token forward, within
     ``ATTN_TOL``'s f32 3e-5 on the first ``XLSTM_CHECK_DEPTH`` blocks
     and at ``PATH_TOL`` at full depth."""
     from repro_torch.configs import get_config
@@ -4709,8 +4710,8 @@ def phase_xlstm_f32() -> dict:
     from repro_torch.tree import tree_map
     model = build_model(get_config(XLSTM_ARCH).with_(dtype="float32"))
     tokens = make_pipeline(model.cfg, 1, XLSTM_F32_LEN).batch_at(0)["tokens"]
-    cpu = model.init(seed=0, device="cpu")
-    weights = {"cuda": tree_map(lambda t: t.cuda(), cpu), "cpu": cpu}
+    card = model.init(seed=0, device="cuda")
+    weights = {"cuda": card, "cpu": tree_map(lambda t: t.cpu(), card)}
     tol = ATTN_TOL[torch.float32]
     outs, ms = {}, {}
     with torch.no_grad():
@@ -4722,7 +4723,7 @@ def phase_xlstm_f32() -> dict:
                 outs[dev, depth] = m.head(p, m.forward(
                     p, {"tokens": t})).cpu()
                 ms[f"{dev}_depth_{depth}"] = (time.perf_counter() - t0) * 1e3
-    del weights, cpu
+    del weights, card
     short = (outs["cuda", XLSTM_CHECK_DEPTH], outs["cpu", XLSTM_CHECK_DEPTH])
     if not torch.allclose(*short, **tol):
         fail(f"xlstm f32 depth {XLSTM_CHECK_DEPTH}: card vs cpu "
@@ -6001,13 +6002,13 @@ def phase_dryrun(train, D, FA) -> dict:
                 dict(FA.flash_attention_kernel.launches_by_variant)}
 
 
-def remat_pair(train, D, argv, host: bool) -> dict:
+def remat_pair(train, D, argv) -> dict:
     """One launcher training step of ``argv`` (a world of 1 must be up)
-    without and with remat, from the same weights (drawn on the host
-    when ``host``, else on the card), both on the same inputs: loss and
-    every updated parameter bitwise, else the differing leaves listed and
-    held at ``PATH_TOL``; each run's ``max_memory_allocated`` and its
-    growth over the memory held before it."""
+    without and with remat, from the same weights (drawn on the card),
+    both on the same inputs: loss and every updated parameter bitwise,
+    else the differing leaves listed and held at ``PATH_TOL``; each run's
+    ``max_memory_allocated`` and its growth over the memory held before
+    it."""
     import torch.distributed as dist
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model
@@ -6017,8 +6018,7 @@ def remat_pair(train, D, argv, host: bool) -> dict:
     model = build_model(cfg)
     pipe = make_pipeline(cfg, args.batch_per_worker, args.seq_len,
                          seed=args.seed)
-    params = (host_weights(model, args.seed, args.device) if host
-              else model.init(seed=args.seed, device=args.device))
+    params = model.init(seed=args.seed, device=args.device)
     opt = train.build_optimizer(args, cfg, dist.group.WORLD)
     opt_state = opt.init(params)
     ex_state = opt.init_exchange_state(
@@ -6070,7 +6070,7 @@ def phase_partitioned(train, D, FA) -> dict:
     """Remat and the partitioned step on the card (module docstring, 19):
 
       (a) ``remat_pair`` on the launcher's full-width transformer-big
-          dense_reduce step (``FULL_WIDTH``), host-drawn weights;
+          dense_reduce step (``FULL_WIDTH``);
       (b) ``remat_pair`` on full-width llama3.2-1b at the dense path's
           shape;
       (c) on a (1, 1) ("data", "model") mesh of DTensors over the world
@@ -6099,10 +6099,10 @@ def phase_partitioned(train, D, FA) -> dict:
     created = _world_of_one(train)
     try:
         tb = remat_pair(train, D, FULL_WIDTH + [
-            "--grad-accum", "dense_reduce", "--steps", "1"], host=True)
+            "--grad-accum", "dense_reduce", "--steps", "1"])
         torch.cuda.empty_cache()
         llama = remat_pair(train, D, full_width("llama3.2-1b") + [
-            "--grad-accum", "dense_reduce", "--steps", "1"], host=False)
+            "--grad-accum", "dense_reduce", "--steps", "1"])
         torch.cuda.empty_cache()
         spec = mesh_lib.make_mesh((1, 1), ("data", "model"))
         dmesh = mesh_lib.device_mesh(spec, "cuda")
@@ -6150,7 +6150,7 @@ def phase_partitioned(train, D, FA) -> dict:
         # (d) the train step
         args, _, batch_at = zero1_setup(train, FULL_WIDTH + [
             "--grad-accum", "dense_reduce", "--steps", "1"])
-        params = host_weights(model, args.seed, "cuda")
+        params = model.init(seed=args.seed, device="cuda")
         opt = DistributedOptimizer(
             adamw(noam_schedule(cfg.d_model, warmup_steps=args.warmup)),
             exchange=ExchangeConfig(sparse_as_dense=True,

@@ -49,14 +49,97 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+_LN2 = 0.6931471805599453                   # the f64 nearest ln 2
+_SQRT_HALF = 0.7071067811865476
+#: 2 atanh(t) = 2 t (1 + t^2/3 + t^4/5 + ...): |t| <= 0.1716 below, so
+#: eight terms leave ~1e-14
+_ATANH_C = [1.0 / (2 * k + 1) for k in range(8)]
+#: candidate pairs a round: every operand stays under ATen's parallel
+#: grain (32768 elements), so no op of a draw starts a thread team
+_MAX_PAIRS = 16000
+
+
+def _log_f64(x: torch.Tensor) -> torch.Tensor:
+    """ln x of positive f64 ``x`` from +, -, *, / and ``frexp``: x = m 2^e
+    with m in [sqrt(1/2), sqrt(2)), ln m = 2 atanh((m - 1) / (m + 1))."""
+    m, e = torch.frexp(x)
+    low = m < _SQRT_HALF
+    m = torch.where(low, m + m, m)
+    e = e.sub_(low.to(e.dtype)).to(torch.float64).mul_(_LN2)
+    t = (m - 1.0).div_(m.add_(1.0))
+    z = t * t
+    p = torch.full_like(z, _ATANH_C[-1])
+    for c in reversed(_ATANH_C[:-1]):
+        p = p.mul_(z).add_(c)
+    return p.mul_(t).mul_(2.0).add_(e)
+
+
+def _sqrt_f64(x: torch.Tensor) -> torch.Tensor:
+    """sqrt x of positive f64 ``x`` from +, *, / and ``frexp``: x = m 4^h
+    with m in [1/2, 2), four Newton steps from (m + 1) / 2 (relative error
+    6e-2, 2e-3, 2e-6, 1e-12, then rounding), times 2^h built from its
+    bits.  ``torch.sqrt`` may go to MKL's vector math, whose code also
+    depends on the host's ISA."""
+    m, e = torch.frexp(x)
+    odd = (e & 1).bool()
+    m = torch.where(odd, m + m, m)
+    h = (e - odd.to(e.dtype)) >> 1
+    y = (m + 1.0).mul_(0.5)
+    for _ in range(4):
+        y = (m / y).add_(y).mul_(0.5)
+    return y.mul_(((h.to(torch.int64) + 1023) << 52).view(torch.float64))
+
+
+def _cpu_normal(gen: torch.Generator, n: int) -> torch.Tensor:
+    """``n`` N(0, 1) values in f32 whose bits depend on ``gen``'s state
+    and ``n`` alone.  ATen's CPU ``normal_`` takes its log, cos and sin
+    from code chosen by the host's vector ISA (AVX-512, AVX2 or none),
+    which rounds differently.  Here the only draws are integers, and
+    Marsaglia's polar method maps them with integer arithmetic and exact
+    or correctly rounded f64 operations, rounded once to f32.  Each
+    candidate pair is one 62-bit integer: two odd 31-bit coordinates
+    x, y in (-2^31, 2^31), kept when x^2 + y^2 < 2^62 (exact in int64)."""
+    out = torch.empty(n, dtype=torch.float32)
+    pos = 0
+    while pos < n:
+        want = (n - pos + 1) // 2                  # pairs; ~4/pi drawn
+        k = torch.randint(0, 1 << 62, (min(_MAX_PAIRS, want * 4 // 3 + 32),),
+                          generator=gen)
+        x = (k >> 31).mul_(2).sub_((1 << 31) - 1)
+        y = (k & ((1 << 31) - 1)).mul_(2).sub_((1 << 31) - 1)
+        r2 = x * x + y * y
+        idx = (r2 < (1 << 62)).nonzero().squeeze(1)
+        s = r2.index_select(0, idx).to(torch.float64).mul_(2.0 ** -62)
+        f = _sqrt_f64(_log_f64(s).mul_(-2.0).div_(s)).mul_(2.0 ** -31)
+        z = torch.stack([x.index_select(0, idx).to(torch.float64).mul_(f),
+                         y.index_select(0, idx).to(torch.float64).mul_(f)],
+                        1).view(-1)[:n - pos]
+        out[pos:pos + z.numel()] = z
+        pos += z.numel()
+    return out
+
+
+def normal_f32(gen: Optional[torch.Generator], shape,
+               device) -> torch.Tensor:
+    """N(0, 1) values in f32 of ``shape`` drawn from ``gen`` on
+    ``device``: the one draw of the seeded init.  On the CPU the bits are
+    a function of the seed and the shape alone (``_cpu_normal``); the
+    card keeps ``normal_`` on its own generator (other numbers from one
+    seed, as before), and meta tensors get a shape."""
+    device = torch.device(device)
+    if device.type != "cpu":
+        return torch.empty(shape, dtype=torch.float32,
+                           device=device).normal_(generator=gen)
+    return _cpu_normal(gen, math.prod(shape)).view(shape)
+
+
 def dense_init(gen: Optional[torch.Generator], shape, device,
                scale: Optional[float] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """N(0, 1) * scale drawn in f32, then cast (``layers.dense_init``)."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
-    x = torch.empty(shape, dtype=torch.float32, device=device)
-    return (x.normal_(generator=gen) * scale).to(dtype)
+    return (normal_f32(gen, shape, device) * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

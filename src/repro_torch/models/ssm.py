@@ -41,8 +41,8 @@ def init_mamba2(gen: Optional[torch.Generator], cfg: ArchConfig,
     f32 = torch.float32
 
     def conv_init(shape):
-        w = torch.empty(shape, dtype=f32, device=device)
-        return (w.normal_(generator=gen) / math.sqrt(s.conv_dim)).to(dt)
+        return (L.normal_f32(gen, shape, device)
+                / math.sqrt(s.conv_dim)).to(dt)
 
     return {
         "w_z": L.dense_init(gen, (d, d_inner), device, dtype=dt),

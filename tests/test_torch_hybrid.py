@@ -9,7 +9,8 @@ reference runs its attention as the Pallas kernel in interpret mode
 path); the port runs ``"chunked"`` (plain attention and ``ssd_chunked``)
 and ``"kernel"`` (the flash attention and SSD kernels' plain versions
 on the CPU).  Values within 1e-5 (f32; XLA and torch sum in other
-orders).  The reduced config
+orders); the whole forward's residual stream within ``HOST_TOL``, above
+the reference's own host noise.  The reduced config
 has 4 layers and ``attn_every`` 2, so no trailing Mamba2 block; the
 5-layer variant has one, as full width has 3 (81 = 13 x 6 + 3).
 The serving path is in tests/test_torch_hybrid_decode.py, the training
@@ -48,6 +49,15 @@ from repro_torch.tree import tree_flatten                # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+#: the residual stream of ``test_forward_matches_reference``.  The
+#: reference's own output moves with the host's CPU: over the six
+#: configurations of scripts/host_sweep_torch.py its largest spread is
+#: 1.466e-5 (``models``, seq 64, between ``xla_avx2`` and ``both_sse``:
+#: XLA's code for AVX2 against SSE4.2), and it needs rtol = atol 1.10e-5
+#: to agree with itself (tests/_torch_host_noise.py).  So the bound is
+#: twice that spread, within the reference's 2e-4 for the whole hybrid
+#: model (tests/test_decode.py).
+HOST_TOL = dict(rtol=3e-5, atol=3e-5)
 
 
 def _build(n_layers=None):
@@ -170,7 +180,7 @@ def test_forward_matches_reference(request, variant, seq, impl):
     jh = _REF_FORWARD[key]
     with torch.no_grad():
         h = tmodel.forward(tparams, {"tokens": _t(toks)}, attn_impl=impl)
-    np.testing.assert_allclose(_np(h), _np(jh), **TOL)
+    np.testing.assert_allclose(_np(h), _np(jh), **HOST_TOL)
     np.testing.assert_allclose(_np(tmodel.head(tparams, h[:, -1:])),
                                _np(jmodel.head(jparams, jh[:, -1:])), **TOL)
 

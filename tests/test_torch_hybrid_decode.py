@@ -4,8 +4,9 @@ Mamba2 blocks' recurrent step and the shared block's KV cache), the cache
 layout and ``ServeEngine.generate``, unchanged on the hybrid cache.
 
 Parameters cross through ``repro_torch.bridge`` (bitwise); tokens are
-numpy arrays from a seed.  Logits and caches within 1e-5 (f32), cache
-lengths and generated tokens exactly; the port's decode against its own
+numpy arrays from a seed.  Logits within 1e-5 (f32), caches within
+``HOST_TOL`` (above the reference's own host noise), cache lengths and
+generated tokens exactly; the port's decode against its own
 forward at the reference's 2e-4 (tests/test_decode.py).  The 5-layer
 variant has a trailing Mamba2 block after the last shared block, as full
 width has 3.
@@ -32,6 +33,13 @@ jax.config.update("jax_platform_name", "cpu")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SELF_TOL = dict(rtol=2e-4, atol=2e-4)      # tests/test_decode.py
+#: the recurrent and KV caches after prefill and decode.  The reference's
+#: own caches move with the host's CPU: over the six configurations of
+#: scripts/host_sweep_torch.py their largest spread is 4.959e-5 (the
+#: 5-layer model's SSM state, |values| up to 14.8, between ``both_sse``
+#: and ``one_cpu``; tests/_torch_host_noise.py).  So the bound is twice
+#: that spread, within SELF_TOL.
+HOST_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _build(n_layers=None):
@@ -94,10 +102,10 @@ def test_prefill_and_decode_match_reference(request, variant):
         == [10, 10]
     for name in ("conv_x", "conv_bc", "ssm"):
         np.testing.assert_allclose(_np(cache["mamba"][name]),
-                                   _np(jcache["mamba"][name]), **TOL)
+                                   _np(jcache["mamba"][name]), **HOST_TOL)
     for name in ("k", "v"):
         np.testing.assert_allclose(_np(cache["attn"][name]),
-                                   _np(jcache["attn"][name]), **TOL)
+                                   _np(jcache["attn"][name]), **HOST_TOL)
 
 
 def test_decode_matches_own_forward(models5):
